@@ -8,7 +8,6 @@ Usage: python bench/benchmark.py [--floats 16777216] [--batch 128]
 
 import argparse
 import sys
-import time
 
 import numpy as np
 
@@ -18,22 +17,15 @@ import jax.numpy as jnp
 sys.path.insert(0, ".")
 
 from dietgpu_fork_tpu.core.constants import FLOAT_WORD_SIZE, FloatType
-from dietgpu_fork_tpu.api.codec import _default_native
+from dietgpu_fork_tpu.utils.compile_cache import enable_compile_cache
+from dietgpu_fork_tpu.utils.profiling import gpu_description, timed
 from dietgpu_fork_tpu.models.float_codec import (
     float_compress_core,
     float_decompress_core,
 )
 
-# r4: archives use the TPU-default layout (row-stream native on chip,
-# classic elsewhere); override with DIETTPU_NATIVE=0/1
-NATIVE = _default_native()
-
-ITERS = 6
-REPEATS = 3
-
-
-def fence(x):
-    return np.asarray(jax.tree_util.tree_leaves(x)[0].ravel()[:1])
+NATIVE = False  # classic archive layout (what the GPU writes by default)
+REPEATS = 10  # timed calls per stage; the median is reported
 
 
 def rows_of(rng, ft, bs, n):
@@ -59,8 +51,8 @@ def bench(ft, bs, n, prob_bits=10):
             d, sizes, ft, prob_bits=prob_bits, native=NATIVE
         )
 
-    comp32, comp_bytes = jax.jit(enc)(data32)
-    comp32 = jnp.array(np.asarray(comp32))
+    jenc = jax.jit(enc)
+    comp32, comp_bytes = jenc(data32)
 
     def dec(c):
         return float_decompress_core(
@@ -68,60 +60,14 @@ def bench(ft, bs, n, prob_bits=10):
             native=NATIVE,
         )
 
-    out = jax.jit(dec)(comp32)
+    jdec = jax.jit(dec)
+    out = jdec(comp32)
     got = np.asarray(out[0]).view(np.uint8)[:, : n * ws]
     exp = np.asarray(data32).view(np.uint8)[:, : n * ws]
     assert np.array_equal(got, exp) and bool(np.all(np.asarray(out[1])))
 
-    def chain(f, x0, perturb, k):
-        # fori_loop chain: compile cost O(1) in k, loop-carried dependence
-        # still defeats CSE/pipelining (see bench/float_benchmark.py)
-        if k == 1:
-            g = jax.jit(f)
-            return lambda: g(x0)
-
-        @jax.jit
-        def g(x):
-            out0 = jax.tree_util.tree_map(
-                lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(f, x)
-            )
-
-            def body(i, carry):
-                xc, _ = carry
-                o = f(xc)
-                return perturb(xc, o, i), o
-
-            _, o = jax.lax.fori_loop(0, k, body, (x, out0))
-            return o
-
-        return lambda: g(x0)
-
-    def p_enc(d, o, i):
-        return d.at[:, :1].set(d[:, :1] ^ o[0][:, :1] ^ jnp.uint32(i))
-
-    def p_dec(c, o, i):
-        return c.at[:, -1:].set(o[0][:, :1] + jnp.uint32(i))
-
-    iters = min(64, max(ITERS, (1 << 24) // max(n * bs, 1) + 1))
-    def t_of(f1, fk):
-        fence(f1()); fence(fk())
-        t1s, tks = [], []
-        for _ in range(REPEATS):
-            t0 = time.time(); fence(f1()); t1s.append(time.time() - t0)
-            t0 = time.time(); fence(fk()); tks.append(time.time() - t0)
-        # chain-minus-single removes dispatch overhead, but if contention
-        # inflates every single-call sample while one chain sample lands in
-        # a quiet window the difference collapses and the bandwidth reads
-        # absurdly high. t_chain/(k+1) is an honest floor: per-iter time is
-        # (t_chain - dispatch)/k and dispatch >= 0.
-        return max(
-            (min(tks) - min(t1s)) / (iters - 1),
-            min(tks) / (iters + 1),
-            2e-6,
-        )
-
-    t_e = t_of(chain(enc, data32, p_enc, 1), chain(enc, data32, p_enc, iters))
-    t_d = t_of(chain(dec, comp32, p_dec, 1), chain(dec, comp32, p_dec, iters))
+    t_e = timed(lambda: jenc(data32), repeats=REPEATS) / 1e3
+    t_d = timed(lambda: jdec(comp32), repeats=REPEATS) / 1e3
     ratio = int(np.asarray(comp_bytes).sum()) / (bs * n * ws)
     return t_e, t_d, raw_gb, ratio
 
@@ -131,6 +77,8 @@ def main():
     ap.add_argument("--floats", type=int, default=1 << 24)
     ap.add_argument("--batch", type=int, default=128)
     args = ap.parse_args()
+    enable_compile_cache()
+    print(f"# {gpu_description()}", flush=True)
 
     names = {
         FloatType.BFLOAT16: "bfloat16",

@@ -11,7 +11,6 @@ Usage: python bench/float_benchmark.py [--sizes 0.1,1,10,50] [--probbits 9]
 
 import argparse
 import sys
-import time
 
 import numpy as np
 
@@ -21,22 +20,15 @@ import jax.numpy as jnp
 sys.path.insert(0, ".")
 
 from dietgpu_fork_tpu.core.constants import FLOAT_WORD_SIZE, FloatType
-from dietgpu_fork_tpu.api.codec import _default_native
+from dietgpu_fork_tpu.utils.compile_cache import enable_compile_cache
+from dietgpu_fork_tpu.utils.profiling import gpu_description, timed
 from dietgpu_fork_tpu.models.float_codec import (
     float_compress_core,
     float_decompress_core,
 )
 
-# r4: archives use the TPU-default layout (row-stream native on chip,
-# classic elsewhere); override with DIETTPU_NATIVE=0/1
-NATIVE = _default_native()
-
-ITERS = 6
-REPEATS = 3
-
-
-def fence(x):
-    return np.asarray(jax.tree_util.tree_leaves(x)[0].ravel()[:1])
+NATIVE = False  # classic archive layout (what the GPU writes by default)
+REPEATS = 10  # timed calls per stage; the median is reported
 
 
 def words_of(rng, ft, n):
@@ -64,8 +56,8 @@ def bench_one(ft, n, prob_bits):
             d, sizes, ft, prob_bits=prob_bits, native=NATIVE
         )
 
-    comp32, comp_bytes = jax.jit(enc)(data32)
-    comp32 = jnp.array(np.asarray(comp32))
+    jenc = jax.jit(enc)
+    comp32, comp_bytes = jenc(data32)
 
     def dec(c):
         return float_decompress_core(
@@ -73,66 +65,15 @@ def bench_one(ft, n, prob_bits):
             native=NATIVE,
         )
 
-    out = jax.jit(dec)(comp32)
+    jdec = jax.jit(dec)
+    out = jdec(comp32)
     got = np.asarray(out[0]).view(np.uint8)[0, : n * ws]
     exp = np.asarray(data32).view(np.uint8)[0, : n * ws]
     assert np.array_equal(got, exp), f"round-trip failed ft={ft} n={n}"
     assert bool(np.asarray(out[1])[0])
 
-    def chain(f, x0, perturb, k):
-        # k dependent invocations as a fori_loop so compile cost is O(1)
-        # in k (a 64-deep unrolled chain took minutes to compile); the
-        # loop-carried dependence still defeats CSE/pipelining across
-        # iterations, which is what makes the chain timing honest.
-        if k == 1:
-            g = jax.jit(f)
-            return lambda: g(x0)
-
-        @jax.jit
-        def g(x):
-            out0 = jax.tree_util.tree_map(
-                lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(f, x)
-            )
-
-            def body(i, carry):
-                xc, _ = carry
-                out = f(xc)
-                return perturb(xc, out, i), out
-
-            _, out = jax.lax.fori_loop(0, k, body, (x, out0))
-            return out
-
-        return lambda: g(x0)
-
-    def p_enc(d, out, i):
-        return d.at[:, :1].set(d[:, :1] ^ out[0][:, :1] ^ jnp.uint32(i))
-
-    def p_dec(c, out, i):
-        return c.at[:, -1:].set(out[0][:, :1] + jnp.uint32(i))
-
-    iters = (
-        4 if n >= (1 << 25)
-        else min(64, max(ITERS, (1 << 24) // max(n, 1) + 1))
-    )
-    def t_of(f1, fk):
-        fence(f1()); fence(fk())
-        t1s, tks = [], []
-        for _ in range(REPEATS):
-            t0 = time.time(); fence(f1()); t1s.append(time.time() - t0)
-            t0 = time.time(); fence(fk()); tks.append(time.time() - t0)
-        # chain-minus-single removes dispatch overhead, but if contention
-        # inflates every single-call sample while one chain sample lands in
-        # a quiet window the difference collapses and the bandwidth reads
-        # absurdly high. t_chain/(k+1) is an honest floor: per-iter time is
-        # (t_chain - dispatch)/k and dispatch >= 0.
-        return max(
-            (min(tks) - min(t1s)) / (iters - 1),
-            min(tks) / (iters + 1),
-            2e-6,
-        )
-
-    t_enc = t_of(chain(enc, data32, p_enc, 1), chain(enc, data32, p_enc, iters))
-    t_dec = t_of(chain(dec, comp32, p_dec, 1), chain(dec, comp32, p_dec, iters))
+    t_enc = timed(lambda: jenc(data32), repeats=REPEATS) / 1e3
+    t_dec = timed(lambda: jdec(comp32), repeats=REPEATS) / 1e3
     ratio = int(np.asarray(comp_bytes)[0]) / (n * ws)
     return ratio, raw_gb / t_enc, raw_gb / t_dec
 
@@ -145,6 +86,8 @@ def main():
         "--types", default="float16,bfloat16,float32,float64"
     )
     args = ap.parse_args()
+    enable_compile_cache()
+    print(f"# {gpu_description()}", flush=True)
     sizes = [float(s) for s in args.sizes.split(",")]
     names = {
         "float16": FloatType.FLOAT16, "bfloat16": FloatType.BFLOAT16,

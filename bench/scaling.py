@@ -3,7 +3,7 @@
 Measurements (BASELINE north star: >=90% scaling efficiency 1 chip ->
 N hosts):
 
-1. WIRE BYTES PER DEVICE, MEASURED — the r5 two-phase wire protocol moves
+1. WIRE BYTES PER DEVICE, MEASURED — the two-phase wire protocol moves
    ceil(actual_payload / chunk) chunks, so wire bytes are data-dependent;
    every collective reports the payload words it actually moved
    (return_stats=True) and those are what the table records at ndev<=8.
@@ -21,7 +21,8 @@ N hosts):
    bytes with per-member tables vs the shared-frequency-table mode where
    one table serves every member (parallel/sharded.py).
 5. Wall time on the virtual CPU mesh for 2/4/8 devices (correctness-level
-   sanity only — CPU "ICI" is memcpy; real ICI numbers need a pod slice).
+   sanity only — the CPU "interconnect" is memcpy; real numbers need
+   several cards).
 
 Writes bench/results_scaling_r5.csv (kind,dtype,ndev,metric,value).
 
@@ -87,7 +88,7 @@ def archive_bytes(n_floats: int, ft: FloatType, rng) -> int:
 
 
 def modeled_hop_wire(n_floats: int, ft: FloatType, arch_b: int) -> int:
-    """Wire bytes of one chunked transfer under the r5 protocol."""
+    """Wire bytes of one chunked transfer under the two-phase protocol."""
     raw_w = -(-n_floats * FLOAT_WORD_SIZE[ft] // 4)
     payload_w = min(-(-arch_b // 4), raw_w)
     cw = coll._chunk_words(raw_w, None)
@@ -221,7 +222,7 @@ def main():
         row("shared_table", "uint8", 8, "wire_vs_separate",
             round(shared_wire / sep_total, 4))
 
-    # virtual-mesh wall times (sanity, not ICI-representative)
+    # virtual-mesh wall times (sanity, not interconnect-representative)
     print("\n# virtual-mesh wall time (CPU, sanity only)")
     for ndev in (2, 4, 8):
         if len(devs) < ndev:

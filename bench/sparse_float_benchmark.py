@@ -11,7 +11,6 @@ Usage: python bench/sparse_float_benchmark.py [--sizes 0.1,1,15]
 
 import argparse
 import sys
-import time
 
 import numpy as np
 
@@ -21,22 +20,15 @@ import jax.numpy as jnp
 sys.path.insert(0, ".")
 
 from dietgpu_fork_tpu.core.constants import FLOAT_WORD_SIZE, FloatType
-from dietgpu_fork_tpu.api.codec import _default_native
+from dietgpu_fork_tpu.utils.compile_cache import enable_compile_cache
+from dietgpu_fork_tpu.utils.profiling import gpu_description, timed
 from dietgpu_fork_tpu.models.sparse import (
     sparse_float_compress_core,
     sparse_float_decompress_core,
 )
 
-# r4: archives use the TPU-default layout (row-stream native on chip,
-# classic elsewhere); override with DIETTPU_NATIVE=0/1
-NATIVE = _default_native()
-
-ITERS = 4
-REPEATS = 3
-
-
-def fence(x):
-    return np.asarray(jax.tree_util.tree_leaves(x)[0].ravel()[:1])
+NATIVE = False  # classic archive layout (what the GPU writes by default)
+REPEATS = 10  # timed calls per stage; the median is reported
 
 
 def sparse_words(rng, ft, n, sparsity=0.5):
@@ -66,68 +58,22 @@ def bench_one(ft, n, bs, prob_bits, sparsity=0.5):
             d, sizes, ft, prob_bits=prob_bits, native=NATIVE
         )
 
-    comp32, comp_bytes = jax.jit(enc)(data32)
-    comp32 = jnp.array(np.asarray(comp32))
+    jenc = jax.jit(enc)
+    comp32, comp_bytes = jenc(data32)
 
     def dec(c):
         return sparse_float_decompress_core(
             c, n, ft, prob_bits=prob_bits, native=NATIVE
         )
 
-    out = jax.jit(dec)(comp32)
+    jdec = jax.jit(dec)
+    out = jdec(comp32)
     got = np.asarray(out[0]).view(np.uint8)[:, : n * ws]
     exp = np.asarray(data32).view(np.uint8)[:, : n * ws]
     assert np.array_equal(got, exp), f"sparse round-trip failed {ft} {n}"
 
-    def chain(f, x0, perturb, k):
-        # fori_loop chain: compile cost O(1) in k, loop-carried dependence
-        # still defeats CSE/pipelining (see bench/float_benchmark.py)
-        if k == 1:
-            g = jax.jit(f)
-            return lambda: g(x0)
-
-        @jax.jit
-        def g(x):
-            out0 = jax.tree_util.tree_map(
-                lambda s: jnp.zeros(s.shape, s.dtype), jax.eval_shape(f, x)
-            )
-
-            def body(i, carry):
-                xc, _ = carry
-                out = f(xc)
-                return perturb(xc, out, i), out
-
-            _, out = jax.lax.fori_loop(0, k, body, (x, out0))
-            return out
-
-        return lambda: g(x0)
-
-    def p_enc(d, out, i):
-        return d.at[:, :1].set(d[:, :1] ^ out[0][:, :1] ^ jnp.uint32(i))
-
-    def p_dec(c, out, i):
-        return c.at[:, -1:].set(out[0][:, :1] + jnp.uint32(i))
-
-    iters = min(64, max(ITERS, (1 << 24) // max(n * bs, 1) + 1))
-    def t_of(f1, fk):
-        fence(f1()); fence(fk())
-        t1s, tks = [], []
-        for _ in range(REPEATS):
-            t0 = time.time(); fence(f1()); t1s.append(time.time() - t0)
-            t0 = time.time(); fence(fk()); tks.append(time.time() - t0)
-        # chain-minus-single removes dispatch overhead, but if contention
-        # inflates every single-call sample while one chain sample lands in
-        # a quiet window the difference collapses and the bandwidth reads
-        # absurdly high. t_chain/(k+1) is an honest floor: per-iter time is
-        # (t_chain - dispatch)/k and dispatch >= 0.
-        return max(
-            (min(tks) - min(t1s)) / (iters - 1),
-            min(tks) / (iters + 1),
-            2e-6,
-        )
-
-    t_enc = t_of(chain(enc, data32, p_enc, 1), chain(enc, data32, p_enc, iters))
-    t_dec = t_of(chain(dec, comp32, p_dec, 1), chain(dec, comp32, p_dec, iters))
+    t_enc = timed(lambda: jenc(data32), repeats=REPEATS) / 1e3
+    t_dec = timed(lambda: jdec(comp32), repeats=REPEATS) / 1e3
     return raw_gb / t_enc, raw_gb / t_dec
 
 
@@ -140,6 +86,8 @@ def main():
         "--types", default="float16,bfloat16,float32,float64"
     )
     args = ap.parse_args()
+    enable_compile_cache()
+    print(f"# {gpu_description()}", flush=True)
     names = {
         "float16": FloatType.FLOAT16, "bfloat16": FloatType.BFLOAT16,
         "float32": FloatType.FLOAT32, "float64": FloatType.FLOAT64,
@@ -149,9 +97,8 @@ def main():
         "float_type,prob_bits,num_batches,million_floats,sparsity,"
         "comp_bandwidth_gbps,decomp_bandwidth_gbps"
     )
-    # type-INNERMOST with sizes as given: on a shared chip the sweep can be
-    # cut short, and this order completes full-dtype coverage config by
-    # config instead of finishing one dtype before touching the next
+    # type-innermost: a sweep cut short still covers every dtype for the
+    # configurations it reached
     for bs in [int(b) for b in args.batches.split(",")]:
         for mf in [float(s) for s in args.sizes.split(",")]:
             for ft in [names[t] for t in args.types.split(",")]:

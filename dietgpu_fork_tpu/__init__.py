@@ -1,6 +1,7 @@
-"""dietgpu_fork_tpu: TPU-native lossless compression for numerical data.
+"""dietgpu_fork_tpu: lossless compression for numerical data, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design, with CUDA kernels for the rANS walks on
+the GPU, of the capabilities of
 NSagan271/dietgpu_fork (a DietGPU fork): batched byte-wise rANS entropy
 coding, float split codecs for fp16/bf16/fp32/fp64, a sparse float codec,
 self-describing archives with optional checksums, and a mesh-sharded
@@ -9,7 +10,8 @@ distributed layer for compressed collectives.
 Layers (bottom to top — compare SURVEY.md §1):
 
   core/      archive format + NumPy oracle codec (the executable spec)
-  ops/       device kernels: rANS coder, tables, histograms, split/join
+  ops/       device ops: rANS coder (plain + CUDA), tables, histograms,
+             split/join, runs-merge
   models/    assembled codec pipelines (ANS, float, sparse), jit-friendly
   api/       torch-ops-compatible batch API + interop
   parallel/  jax.sharding mesh integration, compressed collectives

@@ -105,20 +105,13 @@ _FT_TO_UINT = {
 
 
 def _default_native() -> bool:
-    """Compression default for the archive layout: ROW-STREAM native
-    (0xDB0D) on TPU — measurably faster glue, self-describing, decodable by
-    this library and the NumPy oracle everywhere — and the reference's
-    classic layout (0xD00D) elsewhere, preserving bit-parity with the CUDA
-    reference by default on portable backends. Override per call with
-    ``native=``, or globally with DIETTPU_NATIVE=0/1."""
+    """Compression default for the archive layout: the reference's classic
+    layout (0xD00D), bit-identical to the CUDA reference's archives, unless
+    DIETTPU_NATIVE=1 selects the ROW-STREAM layout (0xDB0D). Override per
+    call with ``native=``."""
     import os
 
-    env = os.environ.get("DIETTPU_NATIVE")
-    if env is not None:
-        return env == "1"
-    from ..core.config import use_pallas
-
-    return use_pallas()
+    return os.environ.get("DIETTPU_NATIVE") == "1"
 
 
 import functools as _functools
@@ -304,8 +297,8 @@ def compress_data(
     histogram: optional uint32[B, 256] caller-supplied byte histograms for
     the raw-ANS path — skips the statistics pass (GpuANSCodec.h:82-84).
 
-    native: archive layout — None (default) picks ROW-STREAM native on TPU
-    and classic elsewhere (_default_native); decompress auto-detects."""
+    native: archive layout — None (default) picks classic unless
+    DIETTPU_NATIVE=1 (_default_native); decompress auto-detects."""
     if native is None:
         native = _default_native()
     if not len(ts):
@@ -313,7 +306,7 @@ def compress_data(
     if histogram is not None and compress_as_float:
         raise ValueError(
             "caller-supplied histograms apply to raw ANS only (the float "
-            "codec derives per-plane histograms inside its fused split)"
+            "codec derives per-plane histograms inside its split)"
         )
     if compress_as_float:
         ft = float_type_of(ts[0])
@@ -641,7 +634,7 @@ def _ragged_concat_fn(byte_lens: tuple, Wcap: int):
 
     @jax.jit
     def concat(rows32):
-        from ..ops.pallas.merge import runs_merge
+        from ..ops.merge import runs_merge
 
         flat = rows32.reshape(-1)
         shifted = (rows32 >> jnp.uint32(16)) | (

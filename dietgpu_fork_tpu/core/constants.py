@@ -1,4 +1,4 @@
-"""Core constants of the dietgpu archive format, TPU edition.
+"""Core constants of the dietgpu archive format.
 
 These mirror the reference constants bit-for-bit so that archives produced by
 this framework are interchangeable with the CUDA reference implementation
@@ -36,21 +36,20 @@ ANS_MIN_STATE = ANS_START_STATE
 # Archive integrity magic / version words.
 ANS_MAGIC = 0xD00D
 ANS_VERSION = 0x0001
-# TPU-native ROW-STREAM layout (opt-in): identical header/probs/states/
+# ROW-STREAM layout (opt-in): identical header/probs/states/
 # blockWords sections, but the compressed streams of each row of 4
 # consecutive blocks are interleaved per STEP into one shared stream
 # (step ascending; within a step, blocks then lanes ascending), tightly
 # packed with 16-byte alignment per ROW instead of per block. Versioned
 # through the header's magic+version word exactly as the reference's
 # mechanism allows (GpuANSUtils.cuh:52-55). 4x fewer stream segments =
-# 4x fewer staging/coalesce pieces on TPU; same compression ratio.
+# 4x fewer staging/coalesce pieces; same compression ratio.
 ANS_MAGIC_NATIVE = 0xDB0D
 FLOAT_MAGIC = 0xF00F
 FLOAT_VERSION = 0x0001
 # Float container version 2 (native archives only, members with
-# >= FLOAT_ALIGN_MIN floats): raw sections start on 512-byte boundaries so
-# both the compress-side archive merge and the decode-side staging move
-# them with full-row direct DMAs instead of roll sub-pieces. Costs at most
+# >= FLOAT_ALIGN_MIN floats): raw sections start on 512-byte boundaries
+# (aligned bulk copies in archive assembly and decode staging). Costs at most
 # 3*512 B of zero padding per member; self-describing per member through
 # the float magic+version word.
 FLOAT_VERSION_ALIGNED = 0x0002

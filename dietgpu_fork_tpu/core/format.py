@@ -52,7 +52,7 @@ class ANSHeader:
     prob_bits: int
     use_checksum: bool
     checksum: int = 0
-    # TPU-native ROW-STREAM layout (see constants.ANS_MAGIC_NATIVE): same
+    # ROW-STREAM layout (see constants.ANS_MAGIC_NATIVE): same
     # sections, but the 4 blocks of each row share ONE per-step-interleaved
     # stream segment, 16B-aligned per ROW; blockWords.y holds the ROW
     # segment start for each of its blocks.
@@ -158,8 +158,7 @@ class FloatHeader:
     checksum: int = 0
     first_comp_segment_bytes: int = 0  # GpuFloatHeader2 field (fp64 only)
     # Version-2 container (FLOAT_VERSION_ALIGNED): raw sections start on
-    # FLOAT_SECTION_ALIGN_BYTES boundaries so archive assembly and decode
-    # staging use full-row direct DMAs (native archives with
+    # FLOAT_SECTION_ALIGN_BYTES boundaries (native archives with
     # size >= FLOAT_ALIGN_MIN)
     aligned: bool = False
 

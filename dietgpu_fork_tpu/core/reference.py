@@ -3,9 +3,9 @@
 This is the executable specification of the codec: a slow but vectorized
 NumPy implementation of the 32-state interleaved rANS coder, the float split
 codecs, and the sparse codec, producing byte-identical archives to what the
-TPU (JAX/Pallas) implementation must emit. The CUDA reference has no such
-oracle; all of its tests are GPU round-trips. Having one lets every TPU
-kernel be asserted byte-for-byte on CPU.
+JAX implementation must emit. The CUDA reference has no such oracle; all of
+its tests are GPU round-trips. Having one lets every device path be
+asserted byte-for-byte on CPU.
 
 Semantics are transcribed from the CUDA reference (citations inline). Two
 reference quirks are handled explicitly:
@@ -440,7 +440,7 @@ def ans_decode(
 
 
 # ---------------------------------------------------------------------------
-# TPU-native ROW-STREAM layout (magic constants.ANS_MAGIC_NATIVE)
+# ROW-STREAM layout (magic constants.ANS_MAGIC_NATIVE)
 #
 # Identical header/probs/states/blockWords sections, but the compressed
 # streams of each ROW of 4 consecutive blocks are interleaved per STEP into
@@ -448,12 +448,12 @@ def ans_decode(
 # ascending — i.e. the row's 128 encode lanes in order), tightly packed
 # with 16-byte alignment per ROW instead of per block. blockWords.y holds
 # the ROW segment start, duplicated across the row's blocks. 4x fewer
-# stream segments = 4x fewer staging/coalesce pieces on TPU, and the
+# stream segments = 4x fewer staging/coalesce pieces, and the
 # decoder's reverse reads use ONE cursor per row. Same compression ratio
 # (slightly less alignment waste). Versioned via the header's
 # magic+version word exactly as the reference's mechanism allows
-# (GpuANSUtils.cuh:52-55). Not produced by the JAX codec yet (round-4
-# kernels); this oracle is the executable spec.
+# (GpuANSUtils.cuh:52-55). This oracle is the executable spec; the JAX
+# codec writes it with native=True.
 # ---------------------------------------------------------------------------
 
 

@@ -1,6 +1,6 @@
 """Batched ANS codec pipelines: archive assembly and parsing on device.
 
-This is the TPU equivalent of ansEncodeBatchDevice / ansDecodeBatch
+This is the equivalent of ansEncodeBatchDevice / ansDecodeBatch
 (GpuANSEncode.cuh:670-845, GpuANSDecode.cuh:478-596). Everything is
 static-shape and jit-friendly:
 
@@ -10,7 +10,7 @@ static-shape and jit-friendly:
 * Archive layout offsets depend on the dynamic per-member block count, so
   assembly and parsing are expressed as ragged runs (header / probs /
   states / blockWords / per-block streams) executed by the runs-merge
-  engine (ops.pallas.merge) — bulk DMA + vector rotates, no scatter.
+  gather (ops/merge.py).
 * Compressed outputs are zero-padded to the worst-case row size given by
   ``max_compressed_size`` — same buffer contract as the reference API, but
   with deterministic (zero) padding instead of garbage.
@@ -24,7 +24,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from ..core.config import use_pallas
 from ..core.constants import (
     BLOCK_SIZE,
     NUM_SYMBOLS,
@@ -33,8 +32,14 @@ from ..core.constants import (
 from ..ops.bitops import bitcast_u32_to_u8, bitcast_u8_to_u32, u32
 from ..ops.checksum import checksum_packed, mask_packed_bytes
 from ..ops.histogram import histogram_packed
-from ..ops.rans_decode import decode_blocks
-from ..ops.rans_encode import MAX_BLOCK_WORDS32, encode_blocks
+from ..ops.merge import _RSH, runs_merge, runs_merge_multi
+from ..ops.rans_decode import decode_blocks, decode_blocks_rows
+from ..ops.rans_encode import (
+    MAX_BLOCK_WORDS32,
+    MAX_ROW_WORDS32,
+    encode_blocks,
+    encode_blocks_rows,
+)
 from ..ops.table import (
     build_decode_table_batched,
     normalize_probs_batched,
@@ -45,7 +50,7 @@ I32 = jnp.int32
 U32 = jnp.uint32
 
 _ANS_MAGIC_VERSION = (0xD00D << 16) | 0x0001
-# TPU-native ROW-STREAM layout (opt-in; versioned via the header's
+# ROW-STREAM layout (opt-in; versioned via the header's
 # magic+version word exactly as the reference's mechanism allows,
 # GpuANSUtils.cuh:52-55). Executable spec: core/reference.py
 # ans_encode_native / ans_decode_native.
@@ -82,13 +87,13 @@ def ans_encode_sections(
     * ``small_sections`` — list of uint32 arrays whose flattened
       concatenation is the metadata run source (headers, pdf tables,
       states, blockWords pairs);
-    * ``stream_ref`` — (ref2d uint32[rows, 128], cap_words): the encoder's
-      compressed-stream staging buffer, addressed DIRECTLY by the archive
-      merge (runs_merge_multi) with no intermediate copy;
+    * ``stream_ref`` — flat uint32 view of the encoder's compressed-stream
+      staging buffer, addressed DIRECTLY by the archive merge
+      (runs_merge_multi) with no intermediate copy;
     * (dst_rel, src_rel, lens) — int32[B, 2+N] per-member run columns:
       dst_rel relative to the member's archive word start (ascending
       within a member); src_rel is a metadata-blob offset, or
-      (1 << merge._RSH) | stream-ref word offset for stream runs.
+      (1 << merge._RSH) | stream word offset for stream runs.
 
     Callers place the blob/ref anywhere in a larger merge and the archive
     anywhere in a larger destination (the float codec fuses this into its
@@ -96,9 +101,6 @@ def ans_encode_sections(
     reference instead points the ANS encoder's OutProvider at the float
     archive, GpuFloatCompress.cuh:807-869).
     """
-    from ..core.config import use_pallas
-    from ..ops.pallas.merge import _RSH, _src_rows_needed
-
     B, W = x32.shape
     S = s_bytes if s_bytes is not None else 4 * W
     NB = max(1, -(-S // BLOCK_SIZE))
@@ -119,37 +121,10 @@ def ans_encode_sections(
     xp = jnp.pad(x32, ((0, 0), (0, pad))) if pad else x32
 
     packed = pack_encode_table(pdf, cdf, shift)
-    if use_pallas():
-        from ..ops.pallas.rans_encode_fused import (
-            encode_blocks_fused,
-            fused_stream_geometry,
-        )
-
-        states, stream_2d, num_words = encode_blocks_fused(
-            xp, sizes, packed, magic, prob_bits, native=native,
-            return_ref=True,
-        )
-        k1, blk_stride, stream_cap = fused_stream_geometry(
-            B, xp.shape[1], native
-        )
-    else:
-        if native:
-            from ..ops.rans_encode import encode_blocks_rows
-
-            states, streams32, num_words = encode_blocks_rows(
-                xp, sizes, packed, magic, prob_bits
-            )
-        else:
-            states, streams32, num_words = encode_blocks(
-                xp, sizes, packed, magic, prob_bits
-            )
-        k1 = streams32.shape[2]
-        blk_stride = streams32.shape[1]
-        flat = streams32.reshape(-1)
-        stream_cap = flat.shape[0]
-        stream_2d = jnp.pad(
-            flat, (0, _src_rows_needed(stream_cap) * 128 - stream_cap)
-        ).reshape(-1, 128)
+    walk = encode_blocks_rows if native else encode_blocks
+    states, streams32, num_words = walk(xp, sizes, packed, magic, prob_bits)
+    k1 = streams32.shape[2]
+    blk_stride = streams32.shape[1]
 
     nb = _num_blocks_dyn(sizes)
     NR = -(-NB // 4)
@@ -233,7 +208,7 @@ def ans_encode_sections(
     src_rel = jnp.concatenate([srcA, srcB, srcC], axis=1)
     lens = jnp.concatenate([lenA, lenB, lenC], axis=1)
     return (
-        small_sections, (stream_2d, stream_cap), dst_rel, src_rel, lens,
+        small_sections, streams32.reshape(-1), dst_rel, src_rel, lens,
         comp_bytes,
     )
 
@@ -263,12 +238,10 @@ def ans_encode_core(
 
     Returns (out32 uint32[B, CW_tight], comp_bytes uint32[B]).
     """
-    from ..ops.pallas.merge import _src_rows_needed, runs_merge_multi
-
     B, W = x32.shape
     S = s_bytes if s_bytes is not None else 4 * W
     NB = max(1, -(-S // BLOCK_SIZE))
-    smalls, (stream_2d, stream_cap), dst_rel, src_rel, lens, comp_bytes = (
+    smalls, stream, dst_rel, src_rel, lens, comp_bytes = (
         ans_encode_sections(
             x32, sizes, prob_bits, use_checksum, hist, s_bytes=S,
             hist_totals=hist_totals, native=native,
@@ -284,14 +257,9 @@ def ans_encode_core(
     out_words = tight // 4
 
     small_flat = jnp.concatenate([s.reshape(-1) for s in smalls])
-    small_cap = small_flat.shape[0]
-    small_2d = jnp.pad(
-        small_flat, (0, _src_rows_needed(small_cap) * 128 - small_cap)
-    ).reshape(-1, 128)
     row0 = (jnp.arange(B, dtype=I32) * out_words)[:, None]
     out = runs_merge_multi(
-        (small_2d, stream_2d),
-        (small_cap, stream_cap),
+        (small_flat, stream),
         (dst_rel + row0).reshape(-1),
         src_rel.reshape(-1),
         lens.reshape(-1),
@@ -337,10 +305,9 @@ def _ans_parse_and_stage(
     native: bool = False,
 ):
     """Shared decode front half: header parse + validation, capacity check,
-    and the states/blockWords/stream staging merges. On TPU the stream
-    staging is END-aligned for the v2 decoder; on CPU it is start-aligned
-    for the reference path. Returns (streams, comp_w, uncomp_w, states, pdf,
-    success, n, csum, NB).
+    and the states/stream staging merge (streams start-aligned per block or
+    row). Returns (streams, comp_w, uncomp_w, states, pdf, success, n,
+    csum, NB).
 
     Header validation mirrors the reference's decode-side asserts
     (GpuANSUtils.cuh:109-112 magic+version, GpuANSDecode.cuh:323 probBits)
@@ -387,41 +354,23 @@ def _ans_parse_and_stage(
     pdf = jnp.stack([pw & u32(0xFFFF), pw >> u32(16)], axis=2).reshape(
         B, NUM_SYMBOLS
     )
-    on_tpu = use_pallas()
 
     # decodable blocks: those that fit the output buffer
     nb = jnp.minimum(nb_arch, NB)
     blk = jnp.arange(NB, dtype=I32)[None, :]
     live = (blk < nb[:, None]) & success[:, None]
 
-    from ..ops.pallas.merge import runs_merge
-
     flat = comp32.reshape(-1)
     b_ar = jnp.arange(B, dtype=I32)
     abs_base = b_ar * CW + base32
 
-    # per-member [states | blockWords] dense staging. blockWords are
-    # needed to COMPUTE the stream runs: for small archives (NB static and
-    # <= 256) they come from a cheap consecutive row-gather and the states
-    # fuse into the stream merge — ONE merge call instead of two, halving
-    # the fixed per-call glue that dominates small-input decode. Large
-    # archives keep the two-merge form (a 2*NB-element XLA gather would
-    # lower serially on TPU).
+    # blockWords are needed to COMPUTE the stream runs, so they come from a
+    # row gather; the states ride the stream staging merge below
     bw_off, data_off = _layout(nb_arch)
     SM = 32 * NB
-    PM = 2 * NB
-    small = NB <= 256
-    if small:
-        bw = row_gather(
-            bw_off[:, None] + jnp.arange(2 * NB, dtype=I32)[None, :]
-        ).reshape(B, NB, 2)
-    else:
-        dst1 = jnp.concatenate([b_ar * SM, B * SM + b_ar * PM])
-        src1 = jnp.concatenate([abs_base + _META_WORDS, abs_base + bw_off])
-        len1 = jnp.concatenate([32 * nb, 2 * nb])
-        stage1 = runs_merge(flat, dst1, src1, len1, B * (SM + PM))
-        states = stage1[: B * SM].reshape(B, NB, 32)
-        bw = stage1[B * SM :].reshape(B, NB, 2)
+    bw = row_gather(
+        bw_off[:, None] + jnp.arange(2 * NB, dtype=I32)[None, :]
+    ).reshape(B, NB, 2)
 
     bx, by = bw[:, :, 0], bw[:, :, 1]
     uncomp_w = jnp.where(live, (bx >> u32(16)).astype(I32), 0)
@@ -459,12 +408,9 @@ def _ans_parse_and_stage(
     # (B, NB, SW) rows (uint16 word k of a block lives at staged word k>>1,
     # half k&1). Native row-stream: ONE segment per row of 4 blocks —
     # 4x fewer merge pieces — staged into (B, NR, SW) with the row's word
-    # count. On TPU the staging is END-aligned (words at [SW-len32, SW))
-    # for the v2 decoder; the CPU reference path start-aligns.
+    # count. Both start-aligned.
     if native:
         NR = -(-NB // 4)
-        from ..ops.rans_encode import MAX_ROW_WORDS32
-
         cw4 = jnp.pad(comp_w, ((0, 0), (0, 4 * NR - NB))).reshape(B, NR, 4)
         seg_words = cw4.sum(axis=2)  # u16 words per row stream
         # blockWords.y duplicates the row start across the row's blocks
@@ -488,27 +434,15 @@ def _ans_parse_and_stage(
     r_flat = (b_ar[:, None] * NSEG + seg_idx).reshape(-1)
     src2 = ((abs_base + data_off)[:, None] + (seg_starts >> 1)).reshape(-1)
     len2 = ((seg_words + 1) >> 1).reshape(-1)
-    if on_tpu:
-        # chunk width: 32 words (classic per-block lane groups) vs 128
-        # (native full-row chunks)
-        cwid = 128 if native else 32
-        SW = -(-(MAXW + 8) // cwid) * cwid
-        dst2 = r_flat * SW + (SW - len2)
-    else:
-        SW = MAXW + 8
-        dst2 = r_flat * SW
-    if small:
-        SB = B * NSEG * SW  # stream region, then the states region
-        dst_all = jnp.concatenate([dst2, SB + b_ar * SM])
-        src_all = jnp.concatenate([src2, abs_base + _META_WORDS])
-        len_all = jnp.concatenate([len2, 32 * nb])
-        stage = runs_merge(flat, dst_all, src_all, len_all, SB + B * SM)
-        streams = stage[:SB].reshape(B, NSEG, SW)
-        states = stage[SB:].reshape(B, NB, 32)
-    else:
-        streams = runs_merge(flat, dst2, src2, len2, B * NSEG * SW).reshape(
-            B, NSEG, SW
-        )
+    SW = MAXW + 8
+    dst2 = r_flat * SW
+    SB = B * NSEG * SW  # stream region, then the states region
+    dst_all = jnp.concatenate([dst2, SB + b_ar * SM])
+    src_all = jnp.concatenate([src2, abs_base + _META_WORDS])
+    len_all = jnp.concatenate([len2, 32 * nb])
+    stage = runs_merge(flat, dst_all, src_all, len_all, SB + B * SM)
+    streams = stage[:SB].reshape(B, NSEG, SW)
+    states = stage[SB:].reshape(B, NB, 32)
     return streams, comp_w, uncomp_w, states, pdf, success, n, csum, NB
 
 
@@ -537,27 +471,9 @@ def ans_decode_core(
             native=native,
         )
     )
-    if use_pallas():
-        from ..ops.pallas.rans_decode_fused2 import decode_blocks_fused2
-        from ..ops.table import build_decode_tables_ranked
-
-        sym4, symtab, big = build_decode_tables_ranked(pdf, prob_bits)
-        out_blocks = decode_blocks_fused2(
-            streams, comp_w, uncomp_w, states, sym4, symtab, prob_bits,
-            row_stream=native, big=big,
-        )
-    elif native:
-        from ..ops.rans_decode import decode_blocks_rows
-
-        lut = build_decode_table_batched(pdf, prob_bits)
-        out_blocks = decode_blocks_rows(
-            streams, comp_w, uncomp_w, states, lut, prob_bits
-        )
-    else:
-        lut = build_decode_table_batched(pdf, prob_bits)
-        out_blocks = decode_blocks(
-            streams, comp_w, uncomp_w, states, lut, prob_bits
-        )
+    lut = build_decode_table_batched(pdf, prob_bits)
+    walk = decode_blocks_rows if native else decode_blocks
+    out_blocks = walk(streams, comp_w, uncomp_w, states, lut, prob_bits)
     OW = -(-out_capacity // 4)
     out32 = out_blocks.reshape(B, NB * (BLOCK_SIZE // 4))[:, :OW]
     # zeros beyond n are guaranteed by construction (decode lanes beyond a
@@ -565,78 +481,6 @@ def ans_decode_core(
     # reduces to one per-member select for failed members — the full
     # mask_packed_bytes here cost ~0.3 ms per 16 MiB of pure glue
     out32 = jnp.where(success[:, None], out32, u32(0))
-    return out32, success, n.astype(U32), csum
-
-
-def ans_decode_join16_core(
-    comp32: jax.Array,
-    base32: jax.Array,
-    raw32_blocks: jax.Array,
-    out_floats: int,
-    prob_bits: int,
-    bf16: bool,
-    capacities: Optional[jax.Array] = None,
-    native: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """TPU-only fused ANS-decode + 16-bit float join: the decoder emits
-    final float words directly (reference RUN_FUSED / JoinFloatWriter,
-    GpuFloatDecompress.cuh:709-972). ``raw32_blocks``: uint32[B, NB, 1024]
-    block-major raw-section words. Returns (words32 uint32[B, NB*2048/...],
-    success, n, csum) with the output masked to the decoded float count."""
-    from ..ops.pallas.rans_decode_fused2 import decode_join16_fused
-    from ..ops.table import build_decode_tables_ranked
-
-    B = comp32.shape[0]
-    streams, comp_w, uncomp_w, states, pdf, success, n, csum, NB = (
-        _ans_parse_and_stage(
-            comp32, base32, out_floats, capacities, prob_bits, native=native
-        )
-    )
-    sym4, symtab, big = build_decode_tables_ranked(pdf, prob_bits)
-    out_fw = decode_join16_fused(
-        streams, comp_w, uncomp_w, states, sym4, symtab, raw32_blocks,
-        prob_bits, bf16, row_stream=native, big=big,
-    )
-    OW = -(-(2 * out_floats) // 4)
-    out32 = out_fw.reshape(B, NB * 2 * (BLOCK_SIZE // 4))[:, :OW]
-    # unmasked: zeros beyond n hold by construction (validated uncomp_w +
-    # zero-filled raw staging); float_decompress_core applies the single
-    # per-member failure select after combining success flags
-    return out32, success, n.astype(U32), csum
-
-
-def ans_decode_join32_core(
-    comp32: jax.Array,
-    base32: jax.Array,
-    sec1_32: jax.Array,
-    sec2_32: jax.Array,
-    out_floats: int,
-    prob_bits: int,
-    capacities: Optional[jax.Array] = None,
-    native: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """TPU-only fused ANS-decode + fp32 join (reference RUN_FUSED for
-    kFloat32). sec1_32/sec2_32: block-major raw sections
-    (uint32[B, NB, 2048] low-u16 pairs / [B, NB, 1024] third bytes).
-    Returns (words32, success, n, csum) masked to the decoded floats."""
-    from ..ops.pallas.rans_decode_fused2 import decode_join32_fused
-    from ..ops.table import build_decode_tables_ranked
-
-    B = comp32.shape[0]
-    streams, comp_w, uncomp_w, states, pdf, success, n, csum, NB = (
-        _ans_parse_and_stage(
-            comp32, base32, out_floats, capacities, prob_bits, native=native
-        )
-    )
-    sym4, symtab, big = build_decode_tables_ranked(pdf, prob_bits)
-    out_fw = decode_join32_fused(
-        streams, comp_w, uncomp_w, states, sym4, symtab, sec1_32, sec2_32,
-        prob_bits, row_stream=native, big=big,
-    )
-    OW = -(-(4 * out_floats) // 4)
-    out32 = out_fw.reshape(B, NB * 4 * (BLOCK_SIZE // 4))[:, :OW]
-    # unmasked, as in ans_decode_join16_core: the caller applies the
-    # combined-success select
     return out32, success, n.astype(U32), csum
 
 

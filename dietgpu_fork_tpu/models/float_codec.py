@@ -1,16 +1,17 @@
 """Batched float codec pipelines: split + ANS compose, on device.
 
-TPU equivalent of floatCompressDevice / floatDecompressDevice
+Equivalent of floatCompressDevice / floatDecompressDevice
 (GpuFloatCompress.cuh:670-874, GpuFloatDecompress.cuh:900-1073). Structure:
 
-* compress: Pallas fused split+histogram (the reference's
+* compress: split + per-plane histograms (the reference's
   splitFloat+histogram) -> per-plane ANS encode (1 plane; 2 independent
   planes for fp64) -> one ragged runs-merge placing header, raw sections,
   and ANS archive(s) in the archive layout. Every plane stays packed in
-  uint32 lanes end to end.
+  uint32 words end to end.
 * decompress: header parse -> per-plane ANS decode at dynamic offsets ->
-  raw-section runs-merge into dense staging -> Pallas packed join (the
-  reference's JoinFloatWriter fusion, as a second HBM-bound pass).
+  raw-section runs-merge into dense staging -> packed join (the
+  reference fuses the join into the decoder, JoinFloatWriter; here it is
+  a second elementwise pass).
 
 fp64 is two ANS planes; the byte offset of the second is recorded in the
 second header word exactly as GpuFloatHeader2 does (GpuFloatUtils.cuh:78-96).
@@ -23,7 +24,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from ..core.config import use_pallas
 from ..core.constants import (
     BLOCK_SIZE,
     FLOAT_NUM_COMP_SEGMENTS,
@@ -35,6 +35,7 @@ from ..core.constants import (
 from ..ops.bitops import bitcast_u32_to_u8, u32
 from ..ops.checksum import checksum_packed
 from ..ops.float_split import join_packed, split_hist_packed
+from ..ops.merge import _RSH, runs_merge, runs_merge_multi
 from .ans import ans_decode_core, ans_encode_sections
 
 I32 = jnp.int32
@@ -44,20 +45,14 @@ U8 = jnp.uint8
 
 _FLOAT_MAGIC_VERSION = (0xF00F << 16) | 0x0001
 # Version 2 (native archives with >= FLOAT_ALIGN_MIN floats): raw sections
-# start on 128-word (512 B) boundaries so the archive merge and the decode
-# staging move them with full-row direct DMAs instead of roll sub-pieces
-# (~0.35 ms/16 MiB each way). Costs <= 3*512 B of zero padding per member;
-# the layout is per-member self-describing via this magic.
+# start on 128-word (512 B) boundaries. Costs <= 3*512 B of zero padding
+# per member; the layout is per-member self-describing via this magic.
 _FLOAT_MAGIC_VERSION2 = (0xF00F << 16) | 0x0002
 FLOAT_ALIGN_MIN = 1 << 20
 
 
 def _r128(x):
     return ((x + 127) // 128) * 128
-
-import os as _os
-
-_FUSED_F32 = _os.environ.get("DIETTPU_FUSED_F32") == "1"
 
 
 def _floats_capacity(W32: int, ft: FloatType) -> int:
@@ -139,9 +134,8 @@ def float_compress_core(
         seg_bytes.append(parts[5].astype(I32))
     nsegs = len(seg_parts)
 
-    # raw sections arrive as tail-masked merge refs straight from the
-    # split kernel (split_hist_packed archive mode) — no driver-side mask
-    # or repack pass; the merge addresses the kernel's staging directly
+    # raw sections arrive as tail-masked flat merge sources straight from
+    # split_hist_packed's archive mode
 
     s1w, s2w = _section_word_counts(n, ft)
     # aligned (v2) layout per member: native streams + big enough to win
@@ -184,21 +178,15 @@ def float_compress_core(
             + 4 * _MBW * NBp) // 16) * 16,
     )
     tight = 4 * (8 + s1w_cap + s2w_cap + 3 * 128) + nsegs * ans_tight
-    # row width a multiple of 128 words so every member's raw section
-    # lands at dst % 128 == 8 — paired with the 8-word source prefix
-    # below, that makes the (large) raw-section run src/dst congruent
-    # mod 128 and eligible for the merge engine's direct-DMA fast path
+    # row width a multiple of 128 words (every member's raw section
+    # lands at dst % 128 == 8)
     CWf = min(max_float_compressed_size(ft, S_cap), tight) // 4
     CWf = -(-CWf // 128) * 128
 
-    # archive assembly: ONE ragged multi-ref runs-merge per batch placing
-    # the float header, raw section(s), and every ANS segment's header/
-    # blockWords/stream runs, ordered by destination within each member.
-    # The big sources (raw sections from the split kernel, stream staging
-    # from the encoder's phase B) are addressed IN PLACE as separate merge
-    # refs — no 38 MB blob concat, no retile, no mask/pad copies (those
-    # three passes cost ~0.66 ms per 16 Mi member before r5).
-    from ..ops.pallas.merge import _RSH, _src_rows_needed, runs_merge_multi
+    # archive assembly: ONE ragged multi-source runs-merge per batch
+    # placing the float header, raw section(s), and every ANS segment's
+    # header/blockWords/stream runs, ordered by destination within each
+    # member.
 
     # ref 0: small metadata blob = float headers + each segment's
     # (header/pdf/states, blockWords) sections
@@ -210,17 +198,10 @@ def float_compress_core(
         small_list.extend(parts[0])
         acc += sum(s.size for s in parts[0])
     small_flat = jnp.concatenate([s.reshape(-1) for s in small_list])
-    small_cap = small_flat.shape[0]
-    small_2d = jnp.pad(
-        small_flat, (0, _src_rows_needed(small_cap) * 128 - small_cap)
-    ).reshape(-1, 128)
 
     # refs 1..nsegs: per-segment stream staging; nsegs+1..: raw sections
-    refs = [small_2d] + [parts[1][0] for parts in seg_parts] + [
+    refs = [small_flat] + [parts[1] for parts in seg_parts] + [
         r[0] for r in raw_refs
-    ]
-    caps = [small_cap] + [parts[1][1] for parts in seg_parts] + [
-        r[2] for r in raw_refs
     ]
     rid_sec = [(1 + nsegs + i) << _RSH for i in range(len(raw_refs))]
 
@@ -256,7 +237,7 @@ def float_compress_core(
     src = jnp.concatenate(src_cols, axis=1).reshape(-1)
     lens = jnp.concatenate(len_cols, axis=1).reshape(-1)
 
-    out = runs_merge_multi(refs, caps, dst, src, lens, B * CWf).reshape(
+    out = runs_merge_multi(refs, dst, src, lens, B * CWf).reshape(
         B, CWf
     )
 
@@ -323,92 +304,6 @@ def float_decompress_core(
     o_s2 = o_s1 + jnp.where(is_al, _r128(s1w), s1w)
     ans_base0 = base32 + o_s2 + jnp.where(is_al, _r128(s2w), s2w)
 
-    if (
-        ft in (FloatType.FLOAT16, FloatType.BFLOAT16)
-        and use_pallas()
-    ):
-        # fused decode+join (the reference's RUN_FUSED single-pass,
-        # GpuFloatDecompress.cuh:935-972): stage the raw section
-        # block-major (1024 words per 4096-float ANS block) and let the
-        # decoder emit final float words.
-        from ..ops.pallas.merge import runs_merge
-        from .ans import ans_decode_join16_core
-
-        NB = max(1, -(-out_floats // BLOCK_SIZE))
-        b_ar = jnp.arange(B, dtype=I32)
-        abs_base = b_ar * CW + base32
-        dst = b_ar * (NB * 1024)
-        lens = jnp.minimum(s1w, NB * 1024)
-        raw32 = runs_merge(
-            comp32.reshape(-1), dst, abs_base + o_s1, lens, B * NB * 1024
-        ).reshape(B, NB, 1024)
-        words32, ok, psize, _ = ans_decode_join16_core(
-            comp32, ans_base0, raw32, out_floats, prob_bits,
-            ft == FloatType.BFLOAT16, capacities, native=native,
-        )
-        success = success & ok & (psize.astype(I32) == n)
-        # zeros beyond n*ws hold by construction (validated uncomp_w +
-        # zero-filled raw staging); one select zeroes failed members
-        words32 = jnp.where(success[:, None], words32, u32(0))
-        csum_got = (
-            checksum_packed(words32, n * ws)
-            if verify_checksum
-            else jnp.zeros((B,), U32)
-        )
-        return words32, success, n.astype(U32), csum_arch, csum_got
-
-    if (
-        ft == FloatType.FLOAT32
-        and use_pallas()
-        and _FUSED_F32
-    ):
-        # fused decode+join for fp32: both raw sections staged block-major
-        # (2048 low-u16-pair words + 1024 third-byte words per 4096-float
-        # ANS block) and the decoder emits final fp32 words. OFF by
-        # default: the r2 per-step epilogue measured 6.3 ms vs ~4.5 ms
-        # two-pass at 16Mi floats; the r3 TILE epilogue (full-width static
-        # slices + 3 lane gathers per 128-float segment) narrowed it to
-        # 5.0 vs 4.0 ms but two-pass still wins — the fused kernel's
-        # 3x-wider per-step output (4 B/float vs 2) spills the decode
-        # walk's register working set, which the separate join pass (pure
-        # streaming interleave) never pays. The reference fuses fp32
-        # because its GPU ballots/scatters make the extra pass the
-        # expensive part (GpuFloatDecompress.cuh:935-972); on TPU the
-        # trade goes the other way. Validated bit-exact
-        # (scratch/val_join32.py, scratch/time_f32_fused.py); enable with
-        # DIETTPU_FUSED_F32=1.
-        from ..ops.pallas.merge import runs_merge
-        from .ans import ans_decode_join32_core
-
-        NB = max(1, -(-out_floats // BLOCK_SIZE))
-        b_ar = jnp.arange(B, dtype=I32)
-        abs_base = b_ar * CW + base32
-        flat = comp32.reshape(-1)
-        L1 = NB * 2048
-        L2 = NB * 1024
-        dst = jnp.concatenate([b_ar * L1, B * L1 + b_ar * L2])
-        src = jnp.concatenate([abs_base + o_s1, abs_base + o_s2])
-        lens = jnp.concatenate(
-            [jnp.minimum(s1w, L1), jnp.minimum(s2w, L2)]
-        )
-        stage = runs_merge(flat, dst, src, lens, B * (L1 + L2))
-        sec1b = stage[: B * L1].reshape(B, NB, 2048)
-        sec2b = stage[B * L1 :].reshape(B, NB, 1024)
-        words32, ok, psize, _ = ans_decode_join32_core(
-            comp32, ans_base0, sec1b, sec2b, out_floats, prob_bits,
-            capacities, native=native,
-        )
-        success = success & ok & (psize.astype(I32) == n)
-        # zeros beyond n*ws hold by construction (validated uncomp_w +
-        # zero-filled raw staging); one select zeroes failed members
-        words32 = jnp.where(success[:, None], words32, u32(0))
-        csum_got = (
-            checksum_packed(words32, n * ws)
-            if verify_checksum
-            else jnp.zeros((B,), U32)
-        )
-        return words32, success, n.astype(U32), csum_arch, csum_got
-
     planes = []
     for seg in range(nseg):
         base = ans_base0 if seg == 0 else ans_base0 + (first_seg >> 2)
@@ -420,8 +315,6 @@ def float_decompress_core(
 
     # raw section extraction into dense staging (one ragged runs-merge;
     # masked to n at the float level below)
-    from ..ops.pallas.merge import runs_merge
-
     S1W_cap, S2W_cap = _section_word_counts(out_floats, ft)
     C1 = max(S1W_cap, 1)
     C2 = max(S2W_cap, 1)

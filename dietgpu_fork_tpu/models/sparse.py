@@ -1,6 +1,6 @@
 """Batched sparse float codec: nonzero bitmap + dense float codec.
 
-TPU equivalent of floatCompressSparseDevice / floatDecompressSparseDevice
+Equivalent of floatCompressSparseDevice / floatDecompressSparseDevice
 (GpuSparseFloatCompress.cuh:253-446, GpuSparseFloatDecompress.cuh:183-353).
 Differences from the reference, by design:
 
@@ -22,16 +22,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import jax
-
-from ..core.config import use_pallas
 import jax.numpy as jnp
 
 from ..core.constants import (
-    FLOAT_WORD_SIZE,
     FloatType,
     max_sparse_float_compressed_size,
 )
 from ..ops.bitops import bitcast_u32_to_u8, u32
+from ..ops.merge import runs_merge
 from .float_codec import (
     _floats_capacity,
     float_compress_core,
@@ -56,9 +54,7 @@ def _nonzero_mask(data32: jax.Array, n: jax.Array, S_cap: int, ft: FloatType):
     elif ft == FloatType.FLOAT32:
         nz = data32[:, :S_cap] != 0
     else:
-        # NOTE: pairwise OR via reduce_window — x[:, 0::2] strided slices
-        # lower to serial gathers on TPU (~7 ns/element), and a
-        # reshape(..., 2) pads the minor dim 2 -> 128 (64x memory)
+        # pairwise OR of each float's (lo, hi) words
         nz = (
             jax.lax.reduce_window(
                 data32[:, : 2 * S_cap], u32(0), jax.lax.bitwise_or,
@@ -76,38 +72,14 @@ def _bitmap_words(n):
     return (-(-(-(-n // 8)) // 16) * 16) // 4
 
 
-def _pack_bitmap32(nz: jax.Array, n: jax.Array, S_cap: int) -> jax.Array:
-    """MSB-first bit packing (GpuSparseFloatCompress.cuh:64-113), straight
-    into uint32 words (byte k of each word is bits 8k..8k+7, bit 7 first).
-
-    Each bit is pre-shifted to its in-word position in the natural (B, S)
-    layout, then OR-folded with a stride-32 reduce_window — no (.., 4, 8)
-    minor-dim reshapes (those tile 8 -> 128 on TPU, a 16x memory blowup
-    that made packing cost more than the compaction kernel)."""
-    pad = (-S_cap) % 32
-    nzp = jnp.pad(nz.astype(U32), ((0, 0), (0, pad)))
-    pos = jnp.arange(S_cap + pad, dtype=U32)[None, :]
-    # float 8k+j of a word -> bit 8k + (7-j): position xor 7
-    val = nzp << ((pos & u32(31)) ^ u32(7))
-    words = jax.lax.reduce_window(
-        val, u32(0), jax.lax.bitwise_or,
-        window_dimensions=(1, 32), window_strides=(1, 32), padding="VALID",
-    )
-    # zero the alignment tail beyond this member's bitmap
-    wpos = jnp.arange(words.shape[1], dtype=I32)[None, :]
-    valid_w = wpos < (-(-n[:, None] // 32))
-    return jnp.where(valid_w, words, u32(0))
-
-
 def _pack_bitmap_direct(
     data32: jax.Array, n: jax.Array, S_cap: int, ft: FloatType
 ) -> jax.Array:
-    """MSB-first bitmap words straight from the packed input words —
-    no per-float boolean plane. The 16-bit mask's stack(axis=2) pair
-    deinterleave tiles its minor dim 2 -> 128 on TPU (64x memory); here
-    both halves' bits are placed in one shifted value per WORD and
-    OR-folded with strided reduce_windows, all in the natural (B, W)
-    layout."""
+    """MSB-first bit packing (GpuSparseFloatCompress.cuh:64-113) straight
+    from the packed input words, with no per-float boolean plane: byte k
+    of each output word is bits 8k..8k+7, bit 7 first. Each bit is shifted
+    to its in-word position and OR-folded with a strided reduce_window, in
+    the natural (B, W) layout."""
     nI = n.astype(I32)[:, None]
     if ft in (FloatType.FLOAT16, FloatType.BFLOAT16):
         W = S_cap // 2
@@ -206,47 +178,12 @@ def sparse_float_compress_core(
     S_cap = _floats_capacity(W32, ft)
     n = n.astype(I32)
 
-    if use_pallas():
-        # one-pass Pallas packing (the XLA shift+reduce_window form costs
-        # ~3 ms per 30 MiB); tail-mask bits at/after n MSB-first-per-byte
-        from ..ops.pallas.bitmap_pack import (
-            pack_bitmap16_tpu,
-            pack_bitmap32_tpu,
-            pack_bitmap64_tpu,
-        )
-
-        pack = {
-            FloatType.FLOAT16: pack_bitmap16_tpu,
-            FloatType.BFLOAT16: pack_bitmap16_tpu,
-            FloatType.FLOAT32: pack_bitmap32_tpu,
-            FloatType.FLOAT64: pack_bitmap64_tpu,
-        }[ft]
-        bm32 = pack(data32)[:, : -(-S_cap // 32)]
-        wpos = jnp.arange(bm32.shape[1], dtype=I32)[None, :]
-        r = jnp.clip(n[:, None] - wpos * 32, 0, 32)
-        fb = (r >> 3).astype(U32)  # fully-valid bytes
-        full = jnp.where(fb >= 4, u32(0xFFFFFFFF), (u32(1) << (fb * 8)) - 1)
-        part = (
-            (u32(0xFF) << (u32(8) - (r & 7).astype(U32))) & u32(0xFF)
-        ) << (fb * 8)
-        bm32 = bm32 & (full | jnp.where(r < 32, part, u32(0)))
-    else:
-        bm32 = _pack_bitmap_direct(data32, n, S_cap, ft)
+    bm32 = _pack_bitmap_direct(data32, n, S_cap, ft)
     bmw_cap = _bitmap_words(S_cap)
     if bm32.shape[1] < bmw_cap:
         bm32 = jnp.pad(bm32, ((0, 0), (0, bmw_cap - bm32.shape[1])))
-    if use_pallas():
-        from ..ops.pallas.sparse_stream import bitrev8_words, compact_by_bitmap
-
-        ws_ = FLOAT_WORD_SIZE[ft]
-        pair = {2: 0, 4: 1, 8: 2}[ws_]
-        packed, nnz = compact_by_bitmap(
-            data32, bitrev8_words(bm32), S_cap, pair=pair
-        )
-        packed = packed[:, : -(-S_cap * ws_ // 4)]
-    else:
-        nz = _nonzero_mask(data32, n, S_cap, ft)
-        packed, nnz = _compact_nonzeros(data32, nz, ft, S_cap)
+    nz = _nonzero_mask(data32, n, S_cap, ft)
+    packed, nnz = _compact_nonzeros(data32, nz, ft, S_cap)
 
     dense32, dense_bytes = float_compress_core(
         packed, nnz, ft, prob_bits, use_checksum, native=native
@@ -261,8 +198,6 @@ def sparse_float_compress_core(
     end = o_dense + (dense_bytes.astype(I32) >> 2)
 
     # archive assembly: [header | bitmap | dense archive] runs per member
-    from ..ops.pallas.merge import runs_merge
-
     CWs = (4 + bm32.shape[1] + dense32.shape[1])
     BW = bm32.shape[1]
     DW = dense32.shape[1]
@@ -313,8 +248,6 @@ def sparse_float_decompress_core(
         capacities = jnp.full((B,), out_floats, I32)
     success = sane & (n <= capacities.astype(I32))
 
-    from ..ops.pallas.merge import runs_merge
-
     bmw = _bitmap_words(n)
     BMW_cap = max(_bitmap_words(out_floats), 1)
     b_ar = jnp.arange(B, dtype=I32)
@@ -332,23 +265,7 @@ def sparse_float_decompress_core(
     )
     success = success & dsuccess
 
-    # expansion: out[i] = bitmap[i] ? nonzeros[rank(i)] : 0. On TPU the
-    # Pallas window-gather kernel handles all types (pair=0 is the u16-item
-    # mode); CPU keeps the rank-gather formulation.
-    if use_pallas():
-        from ..ops.checksum import mask_packed_bytes
-        from ..ops.pallas.sparse_stream import bitrev8_words, expand_by_bitmap
-
-        ws_ = FLOAT_WORD_SIZE[ft]
-        pair = {2: 0, 4: 1, 8: 2}[ws_]
-        out_w = -(-out_floats * ws_ // 4)
-        bm_lsb = bitrev8_words(bm32)
-        words32 = expand_by_bitmap(nz32, bm_lsb, out_floats, pair=pair)[
-            :, :out_w
-        ]
-        words32 = mask_packed_bytes(words32, n * ws_)
-        return words32, success, n.astype(U32), csum_arch, csum_got
-
+    # expansion: out[i] = bitmap[i] ? nonzeros[rank(i)] : 0, a rank gather
     bitmap = _unpack_bitmap(bm32, out_floats)
     pos = jnp.arange(out_floats, dtype=I32)[None, :]
     bitmap = bitmap & (pos < n[:, None])

@@ -1,9 +1,8 @@
-"""Integer bit-manipulation primitives for the TPU codec, in jnp.
+"""Integer bit-manipulation primitives for the codec, in jnp.
 
 The CUDA reference uses PTX intrinsics (__umulhi, __clz, funnel-shift rotates
-— utils/PtxUtils.cuh). TPU has no 64-bit scalar unit exposed through XLA by
-default, so the wide operations are built from 16/32-bit vector ops, which
-map directly onto the VPU.
+— utils/PtxUtils.cuh). JAX runs with 64-bit types off by default, so the
+wide operations are built from 16/32-bit ops.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ def u32(x):
 def umulhi(a: jax.Array, b: jax.Array) -> jax.Array:
     """High 32 bits of the 64-bit product of two uint32 arrays.
 
-    Decomposed into 16-bit partial products so it runs on 32-bit VPU lanes
+    Decomposed into 16-bit partial products so it needs no 64-bit type
     (replaces PTX __umulhi; reference use: GpuANSEncode.cuh:79).
     """
     a = a.astype(U32)
@@ -82,49 +81,25 @@ def udiv_u43_by_u32(a_hi: jax.Array, divisor: jax.Array) -> jax.Array:
     return (q1 << u32(16)) + q2
 
 
-# The u32<->u8 bitcast goes through a [..., 4]-minor intermediate whose
-# lane dim XLA:TPU pads from 4 to the 128-lane tile — when the compiler
-# materializes that copy (it does for ~0.5 GiB graphs) the temp is a 32x
-# expansion and compress of 123M fp32 floats OOMs HBM. Above the word
-# threshold the conversion runs as a lax.map over fixed flat chunks, so
-# the padded temp is bounded at _BC_CHUNK*128 bytes regardless of size;
-# flat chunking is pure reshapes, no data movement beyond the convert.
-_BC_CHUNK = 1 << 21  # u32 words per chunk (8 MiB raw, 256 MiB padded temp)
-_BC_MIN_WORDS = 1 << 26  # chunk only above 256 MiB arrays
-
-
 def bitcast_u32_to_u8(x: jax.Array) -> jax.Array:
     """uint32[..., n] -> uint8[..., 4n], little-endian byte order."""
-    words = x.size
-    if words >= _BC_MIN_WORDS:
-        C = -(-words // _BC_CHUNK)
-        flat = jnp.pad(x.reshape(-1), (0, C * _BC_CHUNK - words))
-
-        def one(c):
-            return jax.lax.bitcast_convert_type(c, jnp.uint8).reshape(-1)
-
-        b = jax.lax.map(one, flat.reshape(C, _BC_CHUNK)).reshape(-1)
-        return b[: words * 4].reshape(*x.shape[:-1], x.shape[-1] * 4)
     b = jax.lax.bitcast_convert_type(x, jnp.uint8)
     return b.reshape(*x.shape[:-1], x.shape[-1] * 4)
 
 
 def bitcast_u8_to_u32(x: jax.Array) -> jax.Array:
     """uint8[..., 4n] -> uint32[..., n], little-endian byte order."""
-    words = x.size // 4
-    if words >= _BC_MIN_WORDS:
-        C = -(-words // _BC_CHUNK)
-        flat = jnp.pad(x.reshape(-1), (0, 4 * (C * _BC_CHUNK - words)))
-
-        def one(c):
-            return jax.lax.bitcast_convert_type(
-                c.reshape(_BC_CHUNK, 4), U32
-            )
-
-        w = jax.lax.map(one, flat.reshape(C, 4 * _BC_CHUNK)).reshape(-1)
-        return w[:words].reshape(*x.shape[:-1], x.shape[-1] // 4)
     b = x.reshape(*x.shape[:-1], x.shape[-1] // 4, 4)
     return jax.lax.bitcast_convert_type(b, U32)
+
+
+def row_take(tables: jax.Array, idx: jax.Array) -> jax.Array:
+    """values[r, k] = tables[r, idx[r, k]], indices clamped to the row.
+
+    tables: [R, H]; idx: int32[R, K]. The codec's table lookups (encode
+    table pre-gather, decode LUT, per-block reverse stream reads)."""
+    safe = jnp.clip(idx, 0, tables.shape[1] - 1)
+    return jnp.take_along_axis(tables, safe, axis=1)
 
 
 def bitcast_u32_to_u16(x: jax.Array) -> jax.Array:

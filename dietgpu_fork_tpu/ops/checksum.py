@@ -3,8 +3,8 @@
 The reference checksum is the XOR of all input bytes, computed with
 vectorized uint32 loads and a final byte-fold (GpuChecksum.cuh:26-93); the
 fold makes it exactly equal to a byte-wise XOR reduction, which is how we
-compute it — one masked XOR-tree reduction per batch member, a trivially
-HBM-bound op on TPU.
+compute it — one masked XOR-tree reduction per batch member, a
+memory-bound op.
 """
 
 from __future__ import annotations

@@ -5,13 +5,12 @@ leaves sign+mantissa raw, using a rotate-left-by-1 so the sign bit lands in
 the raw section (reference: FloatTypeInfo<FT>::split/join,
 GpuFloatUtils.cuh:194-382).
 
-TPU note: sub-32-bit arrays relayout poorly on the VPU, so every plane here
-is produced and consumed PACKED in uint32 lanes (the exact little-endian
-byte layout the archive stores): the only non-elementwise work is the
-2:1/4:1 lane (de)interleave, expressed as strided slices XLA lowers to a
-single relayout pass. fp64 is (lo, hi) uint32 pairs so nothing needs 64-bit
-lanes (the reference builds its 64-bit rotate from two 32-bit funnel shifts
-for the same reason, GpuFloatUtils.cuh:342-356).
+Every plane here is produced and consumed PACKED in uint32 words (the
+exact little-endian byte layout the archive stores): the only
+non-elementwise work is the 2:1/4:1 word (de)interleave, expressed as
+strided slices that XLA fuses into the elementwise split and join. fp64 is
+(lo, hi) uint32 pairs so nothing needs 64-bit types (the reference builds
+its 64-bit rotate from two 32-bit funnel shifts, GpuFloatUtils.cuh:342-356).
 
 Layouts (all little-endian within each uint32):
   comp planes: 1 exponent byte per float, 4 floats per word
@@ -28,8 +27,6 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import jax
-
-from ..core.config import use_pallas
 import jax.numpy as jnp
 
 from ..core.constants import FloatType
@@ -72,10 +69,6 @@ def split_packed(
     Returns (comp_planes, raw_sections), all uint32-packed as in the
     archive. Requires W32 % 2 == 0 (bf16/fp16/fp64) or % 4 == 0 (fp32).
     """
-    if use_pallas():
-        from .pallas.float_split_fused import split_packed_tpu
-
-        return split_packed_tpu(data32, FloatType(float_type))
     ft = FloatType(float_type)
     if ft in (FloatType.FLOAT16, FloatType.BFLOAT16):
         r = data32 if ft == FloatType.FLOAT16 else _rotl16x2(data32)
@@ -123,35 +116,15 @@ def _b(x, k):
 def split_hist_packed(data32: jax.Array, n_floats: jax.Array,
                       float_type: FloatType, archive: bool = False):
     """split_packed plus per-exponent-plane byte histograms and the input
-    byte checksum (all fused into the split pass on TPU, like the
-    reference's splitFloat+histogram+checksum;
+    byte checksum (the reference's splitFloat+histogram+checksum,
     GpuFloatCompress.cuh:423-551, 702-710). Returns (comp_planes,
     raw_sections, hists, csum) with hists uint32[B, 256] over the first
     n_floats bytes and csum uint32[B].
 
-    archive=True returns raw sections as merge-ref tuples
-    (cells2d uint32[rows, 128], member_stride_words, cap_words) — tail-
-    masked, addressed directly by runs_merge_multi (see
-    pallas.float_split_fused.split_hist_packed_tpu)."""
+    archive=True returns raw sections as merge sources
+    (flat uint32[B * member_stride_words], member_stride_words) — tail-
+    masked, addressed directly by runs_merge_multi."""
     ft = FloatType(float_type)
-    if use_pallas():
-        from .pallas.float_split_fused import (
-            split_archive_geometry,
-            split_hist_packed_tpu,
-        )
-
-        comp, raw, hists, csum = split_hist_packed_tpu(
-            data32, n_floats, ft, archive=archive
-        )
-        if archive:
-            geo = split_archive_geometry(
-                data32.shape[0], data32.shape[1], ft
-            )
-            raw = [
-                (cells, stride, cap)
-                for cells, (stride, cap) in zip(raw, geo)
-            ]
-        return comp, raw, hists, csum
     from ..core.constants import FLOAT_WORD_SIZE
     from .checksum import checksum_packed, mask_packed_bytes
     from .histogram import histogram_packed
@@ -162,21 +135,17 @@ def split_hist_packed(data32: jax.Array, n_floats: jax.Array,
         data32, n_floats.astype(jnp.int32) * FLOAT_WORD_SIZE[ft]
     )
     if archive:
-        from .pallas.merge import _src_rows_needed
-
         ws = FLOAT_WORD_SIZE[ft]
         bpi = {2: (1,), 4: (2, 1), 8: (4, 2)}[ws]
         refs = []
         for sec, bp in zip(raw, bpi):
             sec = mask_packed_bytes(sec, n_floats.astype(jnp.int32) * bp)
+            # archive sections round up to 16 B past the packed capacity:
+            # pad each member's row so those words read as zeros
             B, Wsec = sec.shape
             stride = -(-Wsec // 128) * 128
-            flat = jnp.pad(sec, ((0, 0), (0, stride - Wsec))).reshape(-1)
-            cap = flat.shape[0]
-            flat = jnp.pad(
-                flat, (0, _src_rows_needed(cap) * 128 - cap)
-            )
-            refs.append((flat.reshape(-1, 128), stride, cap))
+            sec = jnp.pad(sec, ((0, 0), (0, stride - Wsec)))
+            refs.append((sec.reshape(-1), stride))
         raw = refs
     return comp, raw, hists, csum
 
@@ -185,10 +154,6 @@ def join_packed(
     comp: List[jax.Array], raw: List[jax.Array], float_type: FloatType
 ) -> jax.Array:
     """Inverse of split_packed: packed planes -> uint32-packed float rows."""
-    if use_pallas():
-        from .pallas.float_split_fused import join_packed_tpu
-
-        return join_packed_tpu(comp, raw, FloatType(float_type))
     ft = FloatType(float_type)
     if ft in (FloatType.FLOAT16, FloatType.BFLOAT16):
         exp, rw = comp[0], raw[0]

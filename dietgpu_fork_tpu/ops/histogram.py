@@ -1,132 +1,35 @@
 """Batched 256-bin byte histograms.
 
 The reference builds per-warp shared-memory histograms with atomics
-(GpuANSStatistics.cuh:21-134). TPU has no fast vector scatter, so we offer
-two formulations and pick per backend:
-
-* ``onehot``: chunked compare-and-reduce. XLA fuses the (chunk, 256)
-  comparison into the reduction, so nothing large materializes; cost is one
-  VPU compare+add per (byte, symbol) pair within a chunk.
-* ``scatter``: jnp scatter-add; fine on CPU, serializes on TPU.
-
-The Pallas fused split+histogram kernel (ops/pallas/) supersedes both on the
-encode hot path; this module remains the reference implementation and the
-fallback for odd shapes.
+(GpuANSStatistics.cuh:21-134). Here the count is one XLA scatter-add, which
+the GPU backend lowers to atomic adds.
 """
 
 from __future__ import annotations
 
 import jax
-
-from ..core.config import use_pallas
 import jax.numpy as jnp
 
 from ..core.constants import NUM_SYMBOLS
+from .bitops import bitcast_u32_to_u8
 
 I32 = jnp.int32
 U32 = jnp.uint32
 
 
-def histogram_batched(
-    data_u8: jax.Array,
-    sizes: jax.Array,
-    method: str = "auto",
-    chunk: int = 1 << 16,
-) -> jax.Array:
-    """data_u8: uint8[B, S]; sizes: int32[B]. Returns uint32[B, 256]."""
+def histogram_batched(data_u8: jax.Array, sizes: jax.Array) -> jax.Array:
+    """data_u8: uint8[B, S]; sizes: int32[B]. Returns uint32[B, 256] counts
+    of each member's first sizes[b] bytes."""
     B, S = data_u8.shape
     pos = jnp.arange(S, dtype=I32)
     valid = pos[None, :] < sizes[:, None].astype(I32)
-
-    if method == "auto":
-        # measured on v5e for 16 MiB inputs: scatter-add 117 ms (serial),
-        # single-row sort 214 ms, XLA MXU nibble matmul 58 ms (one-hot
-        # materialization bound), fused compare-reduce ~20 ms, Pallas MXU
-        # nibble kernel ~1 ms. CPU scatter is fine and exact everywhere.
-        if use_pallas():
-            from .pallas.histogram_mxu import histogram_mxu
-
-            return histogram_mxu(data_u8, sizes)
-        method = "scatter"
-
-    if method == "mxu":
-        # Nibble decomposition: hist2d[hi, lo] = A_hi^T @ A_lo where the
-        # one-hot rows pack 8 consecutive bytes across 128 lanes. The
-        # contraction runs on the MXU; one-hot inputs are exact in bf16 and
-        # accumulation happens in f32. Chunks are capped so no f32 partial
-        # count can reach 2^24, and chunk results accumulate in i32.
-        pad8 = (-S) % 8
-        x = jnp.pad(data_u8, ((0, 0), (0, pad8))).astype(I32)
-        v = jnp.pad(valid, ((0, 0), (0, pad8)))
-        M8 = x.shape[1] // 8
-        g = x.reshape(B, M8, 8, 1)
-        gv = v.reshape(B, M8, 8, 1)
-        nib = jnp.arange(16, dtype=I32)[None, None, None, :]
-        a_hi = (((g >> 4) == nib) & gv).astype(jnp.bfloat16).reshape(B, M8, 128)
-        a_lo = (((g & 15) == nib) & gv).astype(jnp.bfloat16).reshape(B, M8, 128)
-
-        CH = 1 << 20  # 8 MiB of bytes per chunk: counts stay < 2^23
-        nch = -(-M8 // CH)
-        padm = nch * CH - M8
-        if padm:
-            a_hi = jnp.pad(a_hi, ((0, 0), (0, padm), (0, 0)))
-            a_lo = jnp.pad(a_lo, ((0, 0), (0, padm), (0, 0)))
-        a_hi = a_hi.reshape(B, nch, CH, 128)
-        a_lo = a_lo.reshape(B, nch, CH, 128)
-
-        def body(c, acc):
-            p = jnp.einsum(
-                "bmi,bmj->bij", a_hi[:, c], a_lo[:, c],
-                preferred_element_type=jnp.float32,
-            )
-            return acc + p.astype(I32)
-
-        p = jax.lax.fori_loop(
-            0, nch, body, jnp.zeros((B, 128, 128), I32)
-        )
-        # extract the 8 diagonal (16, 16) blocks (same packed byte slot)
-        p4 = p.reshape(B, 8, 16, 8, 16)
-        k = jnp.arange(8)
-        diag = p4[:, k, :, k, :]  # (8, B, 16, 16)
-        hist = diag.sum(axis=0).reshape(B, NUM_SYMBOLS)
-        return hist.astype(U32)
-
-    if method == "scatter":
-        b_idx = jnp.broadcast_to(jnp.arange(B, dtype=I32)[:, None], (B, S))
-        hist = jnp.zeros((B, NUM_SYMBOLS), I32).at[
-            b_idx, data_u8.astype(I32)
-        ].add(valid.astype(I32))
-        return hist.astype(U32)
-
-    if method == "onehot":
-        syms = jnp.arange(NUM_SYMBOLS, dtype=jnp.uint8)
-        nchunks = -(-S // chunk)
-        pad = nchunks * chunk - S
-        x = jnp.pad(data_u8, ((0, 0), (0, pad)))
-        v = jnp.pad(valid, ((0, 0), (0, pad)))
-        x = x.reshape(B, nchunks, chunk)
-        v = v.reshape(B, nchunks, chunk)
-
-        def body(i, acc):
-            eq = (x[:, i, :, None] == syms[None, None, :]) & v[:, i, :, None]
-            return acc + eq.astype(I32).sum(axis=1)
-
-        hist = jax.lax.fori_loop(
-            0, nchunks, body, jnp.zeros((B, NUM_SYMBOLS), I32)
-        )
-        return hist.astype(U32)
-
-    raise ValueError(f"unknown histogram method {method!r}")
+    b_idx = jnp.broadcast_to(jnp.arange(B, dtype=I32)[:, None], (B, S))
+    hist = jnp.zeros((B, NUM_SYMBOLS), I32).at[
+        b_idx, data_u8.astype(I32)
+    ].add(valid.astype(I32))
+    return hist.astype(U32)
 
 
 def histogram_packed(data32: jax.Array, sizes: jax.Array) -> jax.Array:
-    """Byte histogram of uint32-packed rows (B, W); sizes in bytes.
-    TPU: Pallas MXU kernel with in-kernel byte extraction; elsewhere the
-    rows are unpacked once and counted with scatter-add."""
-    from .pallas.histogram_mxu import histogram_mxu_packed
-
-    if use_pallas():
-        return histogram_mxu_packed(data32, sizes)
-    from .bitops import bitcast_u32_to_u8
-
+    """Byte histogram of uint32-packed rows (B, W); sizes in bytes."""
     return histogram_batched(bitcast_u32_to_u8(data32), sizes)

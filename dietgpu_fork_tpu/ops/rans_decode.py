@@ -1,8 +1,13 @@
-"""Interleaved 32-state rANS decoder, vectorized for TPU.
+"""Interleaved 32-state rANS decoder.
 
-TPU-first reformulation of the reference decoder (GpuANSDecode.cuh:56-297).
-All blocks advance in lockstep under one ``lax.scan``; the reference's
-per-warp reverse walk becomes a uniform 128-iteration schedule:
+On the GPU the classic-layout walk is the CUDA kernel of ops/rans_cuda.py,
+which follows the reference decoder (GpuANSDecode.cuh:56-297): one warp per
+block, the decode LUT in shared memory, ballot + popc to rank the reverse
+reads.
+
+The plain jax.numpy formulation here is the CPU path and the kernel's
+reference. All blocks advance in lockstep under one ``lax.scan``; the
+reference's per-warp reverse walk becomes a uniform 128-iteration schedule:
 
   iteration k = 0 handles the block's tail partial group of
   r' = ((U-1) mod 32) + 1 lanes; iterations k >= 1 handle full 32-lane
@@ -31,7 +36,7 @@ from ..core.constants import (
     STEPS_PER_BLOCK,
     WARP_SIZE,
 )
-from .bitops import u32
+from .bitops import bitcast_u8_to_u32, row_take, u32
 
 I32 = jnp.int32
 U32 = jnp.uint32
@@ -55,14 +60,30 @@ def decode_blocks(
     lut:         uint32[B, 2^prob_bits] decode lookup table
 
     Returns out: uint32[B, NB, 1024] packed decoded bytes (little-endian).
+
+    On the GPU this is the CUDA kernel (ops/rans_cuda.py); elsewhere the
+    plain walk below, which is also the kernel's reference.
     """
-    # NOTE: this is the PORTABLE formulation (the CPU test backend and the
-    # bit-exactness reference). The TPU pipeline does not call it:
-    # models/ans.py stages streams end-aligned and drives the Pallas v2
-    # kernel (ops/pallas/rans_decode_fused2.py) directly.
+    if jax.default_backend() == "gpu":
+        from . import rans_cuda
 
-    from .pallas.lookup import chunked_lookup, rowwise_lookup
+        return rans_cuda.decode_blocks(
+            streams32, comp_words, uncomp_words, states, lut, prob_bits
+        )
+    return decode_blocks_plain(
+        streams32, comp_words, uncomp_words, states, lut, prob_bits
+    )
 
+
+def decode_blocks_plain(
+    streams32: jax.Array,
+    comp_words: jax.Array,
+    uncomp_words: jax.Array,
+    states: jax.Array,
+    lut: jax.Array,
+    prob_bits: int,
+) -> jax.Array:
+    """The jax.numpy decode_blocks, on any backend."""
     B, NB, SW = streams32.shape
     lanes = jnp.arange(WARP_SIZE, dtype=I32)
 
@@ -81,7 +102,7 @@ def decode_blocks(
         )
 
         s_bar = (states & state_mask).astype(I32)
-        ent = chunked_lookup(lut, s_bar.reshape(B, -1)).reshape(s_bar.shape)
+        ent = row_take(lut, s_bar.reshape(B, -1)).reshape(s_bar.shape)
         sym = (ent & u32(0xFF)).astype(jnp.uint8)
         pdf = (ent >> u32(8)) & u32(0xFFF)
         smc = ent >> u32(20)
@@ -97,7 +118,7 @@ def decode_blocks(
         )
         idx16 = ptr[:, :, None] - suffix  # block-relative uint16 index
         idx32 = jnp.clip(idx16 >> 1, 0, SW - 1)
-        w32 = rowwise_lookup(
+        w32 = row_take(
             st_rows, idx32.reshape(B * NB, WARP_SIZE)
         ).reshape(idx16.shape)
         val = jnp.where(
@@ -126,9 +147,6 @@ def decode_blocks(
     out = out.reshape(B, NB, BLOCK_SIZE)
     p = jnp.arange(BLOCK_SIZE, dtype=I32)
     out = jnp.where(p[None, None, :] < uw[:, :, None], out, jnp.uint8(0))
-
-    from .bitops import bitcast_u8_to_u32
-
     return bitcast_u8_to_u32(out)
 
 
@@ -153,9 +171,6 @@ def decode_blocks_rows(
     the same encode step (S - 1 - i) — the interleaved stream's reverse
     order is then a single suffix count over the row's 128 lanes.
     """
-    from .pallas.lookup import chunked_lookup, rowwise_lookup
-    from .bitops import bitcast_u8_to_u32
-
     B, NR, SWR = streams_row.shape
     NB = comp_words.shape[1]
     NB4 = 4 * NR
@@ -188,7 +203,7 @@ def decode_blocks_rows(
         ).reshape(B, NR, 4 * WARP_SIZE)
 
         s_bar = (states & state_mask).astype(I32)
-        ent = chunked_lookup(lut, s_bar.reshape(B, -1)).reshape(s_bar.shape)
+        ent = row_take(lut, s_bar.reshape(B, -1)).reshape(s_bar.shape)
         sym = (ent & u32(0xFF)).astype(jnp.uint8)
         pdf = (ent >> u32(8)) & u32(0xFFF)
         smc = ent >> u32(20)
@@ -203,7 +218,7 @@ def decode_blocks_rows(
         )
         idx16 = ptr[:, :, None] - suffix  # row-relative uint16 index
         idx32 = jnp.clip(idx16 >> 1, 0, SWR - 1)
-        w32 = rowwise_lookup(
+        w32 = row_take(
             st_rows, idx32.reshape(B * NR, 4 * WARP_SIZE)
         ).reshape(idx16.shape)
         val = jnp.where((idx16 & 1) == 1, w32 >> u32(16), w32 & u32(0xFFFF))

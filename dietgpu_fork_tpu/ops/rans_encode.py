@@ -1,19 +1,22 @@
-"""Interleaved 32-state rANS encoder, vectorized for TPU.
+"""Interleaved 32-state rANS encoder.
 
-TPU-first reformulation of the reference encoder (GpuANSEncode.cuh:50-211):
+On the GPU the classic-layout walk is the CUDA kernel of ops/rans_cuda.py,
+which follows the reference (GpuANSEncode.cuh:50-211): one warp per 4 KiB
+block, ballot + popc to rank each step's emissions.
 
-* The reference assigns one CUDA warp per 4 KiB block and uses
-  ballot/prefix-popc to compact each step's variable-length emissions. Here
-  *all* blocks of all batch members advance in lockstep: state is a
+The plain jax.numpy formulation here is the CPU path and the kernel's
+reference:
+
+* *All* blocks of all batch members advance in lockstep: state is a
   (batch, blocks, 32) uint32 tensor and the 128 interleave steps run under
   ``lax.scan``. The per-step warp ballot becomes a 32-lane masked cumsum.
 * Partial blocks are handled by validity masks instead of a separate kernel
   (encodeOnePartialWarp semantics: invalid lanes neither emit nor update
   state).
-* Emissions are not compacted online (that would be a per-step scatter).
-  Each step contributes one (word, mask) pair per lane; compaction to the
-  format's (step-major, lane-ascending) stream order happens once at the
-  end with a cumsum + one paired scatter-add into uint32 stream words.
+* Emissions are not compacted online. Each step contributes one
+  (word, mask) pair per lane; compaction to the format's (step-major,
+  lane-ascending) stream order happens once at the end with a cumsum and a
+  per-block sort of (position, word) keys.
 
 The archive byte order this produces is identical to the reference's.
 """
@@ -23,8 +26,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax
-
-from ..core.config import use_pallas
 import jax.numpy as jnp
 
 from ..core.constants import (
@@ -35,7 +36,7 @@ from ..core.constants import (
     WARP_SIZE,
     raw_comp_block_max_size,
 )
-from .bitops import u32, umulhi
+from .bitops import bitcast_u32_to_u8, row_take, u32, umulhi
 from .table import unpack_encode_table
 
 I32 = jnp.int32
@@ -62,29 +63,40 @@ def encode_blocks(
 
     Returns:
       states:    uint32[B, NB, 32]  final per-block interleaved states
-      streams32: uint32[B, NB, >=MAX_BLOCK_WORDS32] compressed words,
-                 little-endian u16 pairs (callers read the stride from
-                 shape[2]; the CPU path keeps a trailing scatter-dump slot)
+      streams32: uint32[B, NB, MAX_BLOCK_WORDS32] compressed words,
+                 little-endian u16 pairs, zero past each block's words
       num_words: int32[B, NB]       emitted uint16 words per block
-    """
-    if use_pallas():
-        from .pallas.rans_encode_fused import encode_blocks_fused
 
-        return encode_blocks_fused(
+    On the GPU this is the CUDA kernel (ops/rans_cuda.py); elsewhere the
+    plain walk below, which is also the kernel's reference.
+    """
+    if jax.default_backend() == "gpu":
+        from . import rans_cuda
+
+        return rans_cuda.encode_blocks(
             x32, sizes, packed_table, magic_table, prob_bits
         )
+    return encode_blocks_plain(x32, sizes, packed_table, magic_table, prob_bits)
 
-    states, words, mask = _walk_cpu(
+
+def encode_blocks_plain(
+    x32: jax.Array,
+    sizes: jax.Array,
+    packed_table: jax.Array,
+    magic_table: jax.Array,
+    prob_bits: int,
+) -> Tuple[jax.Array, jax.Array, jax.Array]:
+    """The jax.numpy encode_blocks, on any backend."""
+
+    states, words, mask = _walk_plain(
         x32, sizes, packed_table, magic_table, prob_bits
     )
     B = x32.shape[0]
     NB = words.shape[2]
 
-    # Compact to format order: step-major, lane-ascending within each block.
-    # TPU has no fast vector scatter, so compaction is a per-block sort of
-    # (position << 16 | word) keys — XLA's TPU sort runs vector-wide
-    # (measured ~15x faster than scatter-add). Emission positions are unique
-    # per block, so the packed keys sort stably into stream order.
+    # Compact to format order: step-major, lane-ascending within each block,
+    # as a per-block sort of (position << 16 | word) keys. Emission
+    # positions are unique per block, so the keys sort into stream order.
     mask_f = mask.transpose(1, 2, 0, 3).reshape(B, NB, BLOCK_SIZE)
     words_f = words.transpose(1, 2, 0, 3).reshape(B, NB, BLOCK_SIZE)
 
@@ -103,9 +115,6 @@ def encode_blocks(
     w16 = jnp.where(slot < num_words[:, :, None], w16, u32(0))
     v = w16.reshape(B, NB, MAX_BLOCK_WORDS32, 2)
     streams32 = v[..., 0] | (v[..., 1] << u32(16))
-    # keep the extra dump column for layout compatibility with callers
-    streams32 = jnp.pad(streams32, ((0, 0), (0, 0), (0, 1)))
-
     return states, streams32, num_words
 
 
@@ -124,14 +133,8 @@ def encode_blocks_rows(
     Same walk as encode_blocks; only the compaction differs. Returns
     (states uint32[B, NB, 32], row_streams32 uint32[B, NR, MAX_ROW_WORDS32]
     with NR = ceil(NB/4), num_words int32[B, NB])."""
-    if use_pallas():
-        from .pallas.rans_encode_fused import encode_blocks_fused
 
-        return encode_blocks_fused(
-            x32, sizes, packed_table, magic_table, prob_bits, native=True
-        )
-
-    states, words, mask = _walk_cpu(
+    states, words, mask = _walk_plain(
         x32, sizes, packed_table, magic_table, prob_bits
     )
     B = x32.shape[0]
@@ -177,7 +180,7 @@ def encode_blocks_rows(
     return states, row_streams32, num_words
 
 
-def _walk_cpu(
+def _walk_plain(
     x32: jax.Array,
     sizes: jax.Array,
     packed_table: jax.Array,
@@ -187,21 +190,16 @@ def _walk_cpu(
     """The 128-step interleaved encode walk (lax.scan). Returns
     (states uint32[B, NB, 32], words uint16[S, B, NB, 32],
     mask bool[S, B, NB, 32])."""
-    from .bitops import bitcast_u32_to_u8
-
     x_u8 = bitcast_u32_to_u8(x32)
     B, padded = x_u8.shape
     NB = padded // BLOCK_SIZE
     sym = x_u8.astype(I32).reshape(B, NB, STEPS_PER_BLOCK, WARP_SIZE)
 
     # Pre-gather per-position table entries (one packed word + magic), so the
-    # sequential scan below does no gathers. chunked_lookup runs the gather
-    # vector-wide on TPU (~60 G lookups/s for 256-entry tables).
-    from .pallas.lookup import chunked_lookup
-
+    # sequential scan below does no gathers.
     flat = sym.reshape(B, -1)
-    tab = chunked_lookup(packed_table, flat).reshape(sym.shape)
-    mag = chunked_lookup(magic_table, flat).reshape(sym.shape)
+    tab = row_take(packed_table, flat).reshape(sym.shape)
+    mag = row_take(magic_table, flat).reshape(sym.shape)
 
     pos = jnp.arange(padded, dtype=I32).reshape(NB, STEPS_PER_BLOCK, WARP_SIZE)
     valid = pos[None] < sizes[:, None, None, None].astype(I32)

@@ -51,8 +51,7 @@ def normalize_probs_batched(
     # The reference sorts (qProb << 16 | sym) descending and walks the sorted
     # array (GpuANSStatistics.cuh:229-315). Both corrections only depend on
     # each element's RANK, so they run here in symbol order with compare-sum
-    # ranks instead — XLA sort lowers to serial gather chains on TPU and was
-    # the bottleneck of the whole table build.
+    # ranks instead of a sort.
     syms = jnp.arange(NUM_SYMBOLS, dtype=I32)
     prob = q.astype(I32)
     diff = target - qsum  # int32[B]
@@ -123,96 +122,6 @@ def unpack_encode_table(t):
     cdf = (t >> u32(12)) & u32(0x7FF)
     shift = t >> u32(23)
     return pdf, cdf, shift
-
-
-def build_decode_tables_split(
-    pdf: jax.Array, prob_bits: int
-) -> Tuple[jax.Array, jax.Array]:
-    """Two-level decode tables for the v2 Pallas decoder: slot->sym with
-    four symbols packed per uint32 (uint32[B, 2^pb/4]) plus per-symbol
-    (pdf | cdf<<16) (uint32[B, 256]). Semantically equal to the packed
-    LUT of build_decode_table_batched (GpuANSDecode.cuh:34-41): the decode
-    step uses smc = sbar - cdf[sym]."""
-    nbuckets = 1 << prob_bits
-    bounds = jnp.cumsum(pdf.astype(I32), axis=1)  # inclusive
-    slots = jnp.arange(nbuckets, dtype=I32)
-
-    # slot's symbol = #{bounds <= slot}; a broadcast compare-sum (XLA
-    # searchsorted lowers to serial gather chains on TPU)
-    sym = jnp.minimum(
-        jnp.sum(
-            bounds[:, None, :] <= slots[None, :, None], axis=2, dtype=I32
-        ),
-        NUM_SYMBOLS - 1,
-    ).astype(U32)
-    s = sym.reshape(pdf.shape[0], nbuckets // 4, 4)
-    sym4 = (
-        s[:, :, 0] | (s[:, :, 1] << u32(8)) | (s[:, :, 2] << u32(16))
-        | (s[:, :, 3] << u32(24))
-    )
-    cdf = (bounds - pdf.astype(I32)).astype(U32)
-    symtab = pdf | (cdf << u32(16))
-    return sym4, symtab
-
-
-def build_decode_tables_ranked(
-    pdf: jax.Array, prob_bits: int
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """Rank-permuted two-level decode tables for the v2 Pallas decoder.
-
-    Symbols are renumbered by descending pdf (ties by ascending symbol id)
-    so the hot second-level lookup hits lane chunk 0 whenever a member has
-    <= 128 distinct symbols — the common case for float exponent planes,
-    where the per-step 256-entry lookup then needs ONE gather instead of
-    two plus a select. Decode tables are derived from the archive's pdf at
-    decode time, so this permutation never touches the format
-    (GpuANSDecode.cuh:405-476 builds its LUT the same way).
-
-    Returns (rank4, rtab, big):
-      rank4: uint32[B, 2^pb/4] — slot -> rank, 4 packed per word;
-      rtab:  uint32[B, 256] — rank -> (sym | cdf<<8 | pdf<<19);
-      big:   int32[1, 1] — 1 if any member uses a rank >= 128 (the decode
-             kernel then adds the chunk-1 gather + select).
-    """
-    # rtab packs cdf into bits 8..18 (11 bits) and pdf into 19..31
-    # (13 bits) — both overflow silently past prob_bits 11
-    assert prob_bits <= 11, prob_bits
-    B = pdf.shape[0]
-    nbuckets = 1 << prob_bits
-    bounds = jnp.cumsum(pdf.astype(I32), axis=1)  # inclusive
-    slots = jnp.arange(nbuckets, dtype=I32)
-    sym = jnp.minimum(
-        jnp.sum(
-            bounds[:, None, :] <= slots[None, :, None], axis=2, dtype=I32
-        ),
-        NUM_SYMBOLS - 1,
-    )
-
-    # descending-pdf rank via compare-sum (XLA sort serializes on TPU)
-    p = pdf.astype(I32)
-    syms = jnp.arange(NUM_SYMBOLS, dtype=I32)
-    key = (p << 8) | (NUM_SYMBOLS - 1 - syms)[None, :]
-    rank = jnp.sum(key[:, None, :] > key[:, :, None], axis=2, dtype=I32)
-
-    rk = jnp.take_along_axis(rank, sym, axis=1).astype(U32)
-    r4 = rk.reshape(B, nbuckets // 4, 4)
-    rank4 = (
-        r4[:, :, 0] | (r4[:, :, 1] << u32(8)) | (r4[:, :, 2] << u32(16))
-        | (r4[:, :, 3] << u32(24))
-    )
-
-    cdf = (bounds - p).astype(U32)
-    packed = syms.astype(U32)[None, :] | (cdf << u32(8)) | (
-        pdf.astype(U32) << u32(19)
-    )
-    # rtab[b, r] = packed[b, s] where rank[b, s] == r (rank is a
-    # permutation: keys are unique per member)
-    eq = rank[:, None, :] == jnp.arange(NUM_SYMBOLS, dtype=I32)[None, :, None]
-    rtab = jnp.sum(jnp.where(eq, packed[:, None, :], u32(0)), axis=2)
-
-    nnz = jnp.max(jnp.sum((pdf > 0).astype(I32), axis=1))
-    big = (nnz > 128).astype(I32).reshape(1, 1)
-    return rank4, rtab, big
 
 
 def build_decode_table_batched(pdf: jax.Array, prob_bits: int) -> jax.Array:

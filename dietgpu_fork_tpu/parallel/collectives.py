@@ -2,7 +2,8 @@
 as its purpose but never implements (README.md:92-96, 123-127).
 
 Pattern: inside `shard_map`, each device float-compresses its shard, the
-*compressed* rows ride the ICI collective, and receivers decompress locally.
+*compressed* rows ride the interconnect collective, and receivers
+decompress locally.
 For exponent-compressible data (gradients, activations ~ N(0, sigma)) this
 cuts all-gather / all-reduce wire bytes to the compression ratio (~0.67x for
 bf16, ~0.25x+raw for fp32 exponents).
@@ -40,10 +41,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
+from jax import shard_map as _shard_map
 
 # codec scans carry constants created inside the mapped function, which the
 # varying-manual-axes checker rejects; disable the check (semantics unchanged)

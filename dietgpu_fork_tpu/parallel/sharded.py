@@ -1,4 +1,4 @@
-"""Mesh-sharded codec: data-parallel batch compression over TPU meshes.
+"""Mesh-sharded codec: data-parallel batch compression over device meshes.
 
 The reference is strictly single-GPU (SURVEY.md §2.8); its enabling property
 — a batch of independently decodable archives with per-member statistics
@@ -22,10 +22,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from functools import partial as _partial
 
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
+from jax import shard_map as _shard_map
 
 # codec scans carry constants created inside the mapped function, which the
 # varying-manual-axes checker rejects; disable the check (semantics unchanged)

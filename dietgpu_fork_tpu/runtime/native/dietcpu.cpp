@@ -1,7 +1,7 @@
 // dietcpu: native host codec for the dietgpu archive format.
 //
 // A from-scratch multithreaded C++ implementation of the same archive
-// format as the TPU codec (see core/constants.py and core/reference.py for
+// format as the JAX codec (see core/constants.py and core/reference.py for
 // the format specification; format origin: dietgpu/ans/GpuANSUtils.cuh).
 // Role in the framework: host-side IO path (compress/decompress straight
 // from storage without a device round trip), a fast test oracle for large

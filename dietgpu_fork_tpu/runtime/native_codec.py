@@ -2,7 +2,7 @@
 
 Provides the framework's host-side compress/decompress path — the
 counterpart of the reference's C++ host layer — producing archives
-byte-identical to the TPU codec and the NumPy oracle. Builds the shared
+byte-identical to the device codec and the NumPy oracle. Builds the shared
 library on first use if it is missing (plain g++, no external deps).
 """
 

@@ -108,73 +108,3 @@ def test_info(rng):
     assert int(sizes[0]) == 4096 and int(sizes[1]) == 100
     assert int(csums[0]) == R.checksum(x[0])
     assert int(csums[1]) == R.checksum(x[1, :100])
-
-
-def test_ranked_decode_tables_match_packed_lut(rng):
-    """The rank-permuted tables must agree with the packed LUT after
-    undoing the rank permutation, for every prob_bits, and the `big` flag
-    must reflect whether any member has > 128 distinct symbols."""
-    import jax.numpy as jnp
-    from dietgpu_fork_tpu.ops.table import (
-        build_decode_table_batched,
-        build_decode_tables_ranked,
-        normalize_probs_batched,
-    )
-
-    for pb, nsym in ((9, 256), (10, 256), (11, 256), (10, 90)):
-        c = rng.integers(0, 1000, (3, 256), dtype=np.int64)
-        c[:, nsym:] = 0  # nsym <= 128 distinct symbols -> big == 0
-        counts = jnp.asarray(c.astype(np.uint32))
-        totals = counts.astype(np.int32).sum(axis=1)
-        pdf, _, _, _ = normalize_probs_batched(counts, totals, pb)
-        lut = np.asarray(build_decode_table_batched(pdf, pb))
-        rank4, rtab, big = (
-            np.asarray(x) for x in build_decode_tables_ranked(pdf, pb)
-        )
-        nnz = int((np.asarray(pdf) > 0).sum(axis=1).max())
-        assert int(big[0, 0]) == int(nnz > 128), (pb, nsym)
-        nb = 1 << pb
-        slots = np.arange(nb)
-        rk = (rank4[:, slots >> 2] >> ((slots & 3) * 8)) & 0xFF
-        e = rtab[np.arange(3)[:, None], rk]
-        sym = e & 0xFF
-        cdf_v = (e >> 8) & 0x7FF
-        pdf_v = e >> 19
-        assert np.array_equal(sym, lut & 0xFF), (pb, nsym)
-        assert np.array_equal(pdf_v, (lut >> 8) & 0xFFF), (pb, nsym)
-        assert np.array_equal(
-            (slots[None, :] - cdf_v) & 0xFFFFFFFF, lut >> 20
-        ), (pb, nsym)
-
-
-def test_split_decode_tables_match_packed_lut(rng):
-    """The TPU decoder's two-level tables must agree with the packed LUT
-    (slot -> (sym, pdf, smc)) for every prob_bits."""
-    import jax.numpy as jnp
-    from dietgpu_fork_tpu.ops.table import (
-        build_decode_table_batched,
-        build_decode_tables_split,
-        normalize_probs_batched,
-    )
-
-    for pb in (9, 10, 11):
-        counts = jnp.asarray(
-            rng.integers(0, 1000, (3, 256), dtype=np.int64).astype(np.uint32)
-        )
-        totals = counts.astype(np.int32).sum(axis=1)
-        pdf, _, _, _ = normalize_probs_batched(counts, totals, pb)
-        lut = np.asarray(build_decode_table_batched(pdf, pb))
-        sym4, symtab = (np.asarray(x) for x in build_decode_tables_split(pdf, pb))
-        nb = 1 << pb
-        slots = np.arange(nb)
-        sym = (sym4[:, slots >> 2] >> ((slots & 3) * 8)) & 0xFF
-        want_sym = lut & 0xFF
-        assert np.array_equal(sym, want_sym)
-        e = symtab[np.arange(3)[:, None], sym]
-        pdf_v = e & 0xFFFF
-        cdf_v = e >> 16
-        assert np.array_equal(pdf_v, (lut >> 8) & 0xFFF)
-        # smc = slot - cdf[sym] must equal the packed LUT's smc field
-        assert np.array_equal(
-            (slots[None, :] - cdf_v) & 0xFFFFFFFF, lut >> 20
-        )

@@ -1,14 +1,11 @@
-"""JAX ANS codec in the TPU-native ROW-STREAM layout (magic 0xDB0D) vs the
+"""JAX ANS codec in the ROW-STREAM layout (magic 0xDB0D) vs the
 NumPy oracle (core/reference.py:ans_encode_native / ans_decode_native): the
 device codec's native archives must match the oracle byte-for-byte and
 round-trip exactly, mirroring tests/test_ans_jax.py for the classic layout.
 
-Coverage mandated by the round-3 advisor: partial rows (NB % 4 != 0),
-partial final blocks, prob_bits 9-11 including the degenerate pdf=2^pb
-single-symbol table, mixed-size incompressible batches, and classic<->native
-magic dispatch. The Pallas kernels' native path (row compaction phase B,
-row_stream decode staging) is covered by TestInterpretNative below via
-DIETTPU_INTERPRET=1.
+Coverage: partial rows (NB % 4 != 0), partial final blocks, prob_bits 9-11
+including the degenerate pdf=2^pb single-symbol table, mixed-size
+incompressible batches, and classic<->native magic dispatch.
 """
 
 import numpy as np
@@ -171,7 +168,7 @@ def test_info_reads_native_headers(rng):
 def test_corrupt_native_block_words_fail_safely(rng):
     """Archive-supplied per-block word counts beyond the format maximum
     (MAX_BLOCK_WORDS per block) must not drive the staging merge out of
-    range: the member folds into success=False (advisor round-3 finding on
+    range: the member folds into success=False (earlier finding on
     models/ans.py staging offsets)."""
     d = make_exponential_bytes(rng, 16389, 10.0)
     comp, comp_bytes = enc(
@@ -190,43 +187,3 @@ def test_corrupt_native_block_words_fail_safely(rng):
     )
     assert not bool(success[0])
     assert not np.any(np.asarray(out))
-
-
-@pytest.mark.slow
-class TestInterpretNative:
-    """Pallas kernel native path (row-stream phase B compaction + row_stream
-    decode staging) in interpret mode — the same coverage contract as
-    tests/test_interpret_pipeline.py."""
-
-    @pytest.fixture(autouse=True)
-    def _interpret(self, monkeypatch):
-        monkeypatch.setenv("DIETTPU_INTERPRET", "1")
-
-    def test_kernel_byte_exact_and_roundtrip(self, rng):
-        run_batch(rng, [5000, 16389, 1], 20000)
-
-    def test_kernel_uniform_batch(self, rng):
-        # uniform members: kernel rows alternate members within one cell
-        run_batch(rng, [8192] * 5, 8192, lam=100.0)
-
-    def _roundtrip_float(self, rng, dtype, sizes):
-        import dietgpu_fork_tpu.api.codec as C
-
-        ts = [rng.standard_normal(n).astype(dtype) for n in sizes]
-        comp, _, _ = C.compress_data(True, ts, checksum=True, native=True)
-        outs, _, succ, _, _ = C.decompress_data(
-            True, comp, [t.size for t in ts], dtype=dtype, checksum=True
-        )
-        assert all(bool(s) for s in np.asarray(succ))
-        for o, t in zip(outs, ts):
-            assert np.array_equal(np.asarray(o), t)
-
-    def test_float_native_fused16(self, rng):
-        # fused decode+join16 with row_stream staging
-        self._roundtrip_float(rng, np.float16, [5000, 16389])
-
-    def test_float_native_fp32_two_pass(self, rng):
-        self._roundtrip_float(rng, np.float32, [13000, 100])
-
-    def test_float_native_fp64_two_planes(self, rng):
-        self._roundtrip_float(rng, np.float64, [9000, 5])

@@ -116,10 +116,10 @@ def test_split_size_float(rng):
 
 
 def test_split_size_native_autodetect(rng):
-    """Split-size decode of a ROW-STREAM (native) archive — the TPU
-    compression default — with no native= pin: the auto-detected layout
-    must thread through to the decoder (r4 regression: codec.py dropped
-    the detected flag and every native split-size decode raised)."""
+    """Split-size decode of a ROW-STREAM (native) archive with no native=
+    pin: the auto-detected layout must thread through to the decoder (an
+    earlier codec.py dropped the detected flag and every native split-size
+    decode raised)."""
     splits = [1000, 777, 4096]
     x = normal(rng, sum(splits), "float32")
     comp, _, _ = C.compress_data_split_size(True, x, splits, native=True)

@@ -1,21 +1,17 @@
 """Large-input correctness tests, mirroring the reference's big cases:
 a 256 x 512Ki-float batch (FloatTest.cu:316-328 "LargeBatch") and a
 123,456,789-element single tensor (dietgpu/float_test.py:66-76
-"test_large"). The full-size variants need a real chip and are TPU-gated
-like tests/test_tpu_kernels.py; a ~8M-element single-member case runs on
-the CPU-pinned default suite so large-shape block accounting (thousands
-of blocks per member, multi-cell kernels) is exercised everywhere."""
+"test_large"). The full-size variants need the card and are marked
+``gpu``; a ~8M-element single-member case runs on the CPU so large-shape
+block accounting (thousands of blocks per member) is exercised
+everywhere."""
 
 import numpy as np
 import pytest
 
 pytestmark = pytest.mark.slow
 
-import jax
-
 import dietgpu_fork_tpu.api.codec as C
-
-_TPU = jax.default_backend() == "tpu"
 
 
 @pytest.fixture
@@ -38,10 +34,8 @@ def _roundtrip(ts, dtype, checksum=True):
 
 
 def test_single_member_8m_cpu(rng):
-    """~8M floats in one member: thousands of ANS blocks, multiple kernel
-    cells, compressed size well past any 32-bit-index edge of interest.
-    Runs on the CPU portable path (and the Pallas path under
-    DIETTPU_INTERPRET=1 / on a chip)."""
+    """~8M floats in one member: thousands of ANS blocks, compressed size
+    well past any 32-bit-index edge of interest."""
     n = 8_000_001  # odd size: exercises the partial final block too
     t = rng.standard_normal(n).astype(np.float16)
     sizes = _roundtrip([t], np.float16)
@@ -49,7 +43,7 @@ def test_single_member_8m_cpu(rng):
     assert 0 < sizes[0] < 2 * n
 
 
-@pytest.mark.skipif(not _TPU, reason="full-size batch needs a real chip")
+@pytest.mark.gpu
 @pytest.mark.parametrize(
     "dtype", [np.float16, "bfloat16", np.float32, np.float64]
 )
@@ -64,7 +58,7 @@ def test_large_batch_256x512k(rng, dtype):
     _roundtrip(ts, dt)
 
 
-@pytest.mark.skipif(not _TPU, reason="123.4M floats needs a real chip")
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [np.float16, np.float32])
 def test_large_single_123m(rng, dtype):
     """dietgpu/float_test.py:66-76: one 123,456,789-element tensor."""

@@ -168,10 +168,8 @@ def test_bitmap_pack_msb_first():
 
 
 class TestNativeRowStreamLayout:
-    """The TPU-native row-stream archive layout (magic 0xDB0D): oracle
-    round trip, section equality with the classic layout, and size
-    accounting. The JAX codec's kernels for this mode are future work;
-    this is the executable format spec."""
+    """The row-stream archive layout (magic 0xDB0D): oracle round trip,
+    section equality with the classic layout, and size accounting."""
 
     def _roundtrip(self, data, pb=10):
         from dietgpu_fork_tpu.core import reference as R
